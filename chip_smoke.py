@@ -1,28 +1,38 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives `pobrax_tpu_torch`'s main path — AntTag at 4096 batched envs with the
-cached on-device randomised autoreset, every control step one launch of the
-hand-written whole-step CUDA kernel — and checks it. Imports no jax and
-nothing of `pobrax_tpu`; the fixture is read with numpy. Phases:
+Drives `pobrax_tpu_torch`'s main paths — AntTag, and the masked stock envs
+Humanoid and Grasp, each at 4096 batched envs with the cached on-device
+randomised autoreset, every control step one launch of the hand-written
+whole-step CUDA kernel — and checks them. Imports no jax and nothing of
+`pobrax_tpu`; the fixture is read with numpy. Phases:
   1. card: name and power limit (nvidia-smi) and torch's device name;
   2. build: compile csrc/whole_step.cu with nvcc, print seconds and ptxas
      registers / spills;
   3. kernel against plain at 4096 envs, from an AntTag reset plus 50 plain
      steps (ground contacts active) with 256 of the ants pushed against an
      arena wall (capsule-box contacts active): one control step each way;
+     then the same for each stock System (humanoid, grasp, fetch, ur5e,
+     reacherangle, inverted_double_pendulum) after a few plain steps from
+     reset, with grasp's Object placed against a finger in 256 envs
+     (two-body capsule-capsule rows live); prints how many envs have a live
+     row of each kind;
   4. fixture replay through the kernel: tests/fixtures/ref_ant_tag_s7.npz at
      batch 1, its 100 recorded actions;
-  5. main path: `create("ant_tag", batch_size=4096, episode_length=1000,
+  5. main paths: `create("ant_tag", batch_size=4096, episode_length=1000,
      randomized_autoreset=True, autoreset_mode=...)` for "cached" and
-     "naive", 10 warm-up steps then 400 timed steps of on-device random
-     actions, with the kernel's launch counter set to 0 just before the 400
-     and read just after;
-  6. times: the kernel's and the plain version's time per control step at
-     4096 envs, and the bound.
-Then one JSON line for the kernel, the card's name and power limit, and the
-last line `{"ok": true, "device": {...}}`. Any failed phase exits non-zero
-before that line is printed. Without a CUDA device it exits 1 at once.
+     "naive"; then `MaskedObservationWrapper(create(name, ..., "cached"),
+     env_name=name, hidden=("VELOCITY",))` (`bench.py`'s masked_<name>) for
+     humanoid and grasp, 400 steps each, and for fetch, ur5e, reacherangle
+     and inverted_double_pendulum, 100 steps each. Each runs 10 warm-up steps
+     then the timed steps of on-device random actions, with the kernel's
+     launch counter set to 0 just before the timed steps and read just after;
+  6. times: per System, the kernel's and the plain version's time per
+     control step at 4096 envs, and the bound.
+Then one JSON line with an entry per System, the card's name and power
+limit, and the last line `{"ok": true, "device": {...}}`. Any failed phase
+exits non-zero before that line is printed. Without a CUDA device it exits 1
+at once.
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ import numpy as np
 import torch
 
 from pobrax_tpu_torch import random as jr
-from pobrax_tpu_torch.envs import create
+from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
+from pobrax_tpu_torch.envs.masks import VELOCITY
 from pobrax_tpu_torch.physics import whole_step
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -55,6 +66,15 @@ WALL_ENVS, WALL_TORSO_X = 256, 5.15  # the +x arena wall's inner face is at x = 
 # tests/test_fused.py (pos/rot 1e-5, vel/ang 1e-3); the rest are such onsets.
 TOL_POS, TOL_VEL, MIN_AGREE = 1e-5, 1e-3, 0.995
 STEPS_GATED = 20  # fixture obs gated at 1e-3 over the first 20 steps
+# stock Systems: plain steps from reset before the comparison, enough for
+# contacts to be live (the humanoid's feet land after ~10 steps; the fetch
+# dog spawns with its feet in the ground)
+STOCK_WARM_STEPS = {"humanoid": 20, "grasp": 12, "fetch": 0, "ur5e": 5, "reacherangle": 5,
+                    "inverted_double_pendulum": 5}
+FINGER_ENVS = 256  # grasp envs whose Object is placed against finger f0
+MASKED_MAIN = ("humanoid", "grasp")  # the masked main paths, MAIN_STEPS each
+MASKED_OTHER, OTHER_STEPS = ("fetch", "ur5e", "reacherangle", "inverted_double_pendulum"), 100
+ROW_KINDS = ("point_plane", "sphere_sphere", "capsule_capsule", "capsule_box")
 
 
 def fail(msg: str) -> None:
@@ -92,6 +112,31 @@ def phase_build() -> None:
             print(f"[build] ptxas: {line.strip()}", flush=True)
 
 
+def compare(tag: str, sys_, qp, act, note: str):
+    """One control step through the kernel and through the plain step from
+    `qp`; fails unless MIN_AGREE of the envs agree and all is finite.
+    Returns the largest |err| over pos/rot/vel/ang."""
+    qk, ik = whole_step.launch(sys_, qp, act)
+    qg, ig = sys_.step_generic(qp, act)
+    torch.cuda.synchronize()
+    pairs = {"pos": (qk.pos, qg.pos), "rot": (qk.rot, qg.rot), "vel": (qk.vel, qg.vel),
+             "ang": (qk.ang, qg.ang), "contact.vel": (ik.contact.vel, ig.contact.vel)}
+    errs = {k: (a - b).abs().flatten(1).max(1).values for k, (a, b) in pairs.items()}
+    finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
+    agree = ((errs["pos"] <= TOL_POS) & (errs["rot"] <= TOL_POS)
+             & (errs["vel"] <= TOL_VEL) & (errs["ang"] <= TOL_VEL))
+    frac = float(agree.float().mean())
+    contacts = int((ig.contact.vel.abs().flatten(1).max(1).values > 0).sum())
+    print("[kernel-vs-plain:%s] B=%d, %d envs in contact%s; max |err| %s" % (
+        tag, B, contacts, note, ", ".join(f"{k} {float(v.max()):.3e}" for k, v in errs.items())),
+        flush=True)
+    print(f"[kernel-vs-plain:{tag}] envs within pos/rot {TOL_POS:g} and vel/ang {TOL_VEL:g}: "
+          f"{frac * 100:.3f}% (need >= {MIN_AGREE * 100:.1f}%); all finite: {finite}", flush=True)
+    if not finite or frac < MIN_AGREE:
+        fail(f"kernel disagrees with the plain step on {tag}")
+    return max(float(errs[k].max()) for k in ("pos", "rot", "vel", "ang"))
+
+
 def phase_kernel_vs_plain(dev):
     env = create("ant_tag", episode_length=None, auto_reset=False, batch_size=B, device=dev)
     sys_ = env.sys
@@ -109,26 +154,45 @@ def phase_kernel_vs_plain(dev):
     qp = qp.replace(pos=pos)
     walled = int((sys_.contacts._capsule_box(qp)[4] > 0).any(-1).sum())
     act = torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1
-    qk, ik = whole_step.launch(sys_, qp, act)
-    qg, ig = sys_.step_generic(qp, act)
-    torch.cuda.synchronize()
-    pairs = {"pos": (qk.pos, qg.pos), "rot": (qk.rot, qg.rot), "vel": (qk.vel, qg.vel),
-             "ang": (qk.ang, qg.ang), "contact.vel": (ik.contact.vel, ig.contact.vel)}
-    errs = {k: (a - b).abs().flatten(1).max(1).values for k, (a, b) in pairs.items()}
-    finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
-    agree = ((errs["pos"] <= TOL_POS) & (errs["rot"] <= TOL_POS)
-             & (errs["vel"] <= TOL_VEL) & (errs["ang"] <= TOL_VEL))
-    frac = float(agree.float().mean())
-    contacts = int((ig.contact.vel.abs().flatten(1).max(1).values > 0).sum())
-    print("[kernel-vs-plain] B=%d, %d envs in contact, %d against a wall; max |err| %s" % (
-        B, contacts, walled, ", ".join(f"{k} {float(v.max()):.3e}" for k, v in errs.items())), flush=True)
-    print(f"[kernel-vs-plain] envs within pos/rot {TOL_POS:g} and vel/ang {TOL_VEL:g}: "
-          f"{frac * 100:.3f}% (need >= {MIN_AGREE * 100:.1f}%); all finite: {finite}", flush=True)
-    if not finite or frac < MIN_AGREE:
-        fail("kernel disagrees with the plain step")
+    max_err = compare("ant_tag", sys_, qp, act, f", {walled} against a wall")
     if walled == 0:
         fail("no env touched a wall: the capsule-box rows went unchecked")
-    max_err = max(float(errs[k].max()) for k in ("pos", "rot", "vel", "ang"))
+    return sys_, qp, act, max_err
+
+
+def live_rows(sys_, qp) -> dict:
+    """Per contact row kind the System has: envs with a row in penetration."""
+    out = {}
+    for kind in ROW_KINDS:
+        rows = getattr(sys_.contacts, f"_{kind}")(qp)
+        if rows is not None:
+            out[kind] = int((rows[4] > 0).any(-1).sum())
+    return out
+
+
+def phase_stock_kernel_vs_plain(dev, name: str):
+    """Kernel against plain on one stock System, after STOCK_WARM_STEPS plain
+    steps from a reset; grasp's Object is placed against finger f0's distal
+    capsule (1.5 cm into it) in FINGER_ENVS envs."""
+    env = create(name, episode_length=None, auto_reset=False, batch_size=B, device=dev)
+    sys_ = env.sys
+    qp = env.reset(jr.PRNGKey(3, dev)).qp
+    g = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(STOCK_WARM_STEPS[name]):
+        qp, _ = sys_.step_generic(qp, torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1)
+    if name == "grasp":
+        dist, obj = sys_.body.index["f0_dist"], sys_.body.index["Object"]
+        pos = qp.pos.clone()
+        pos[:FINGER_ENVS, obj] = pos[:FINGER_ENVS, dist] + torch.tensor([-0.125, 0.0, 0.0],
+                                                                         device=dev)
+        qp = qp.replace(pos=pos)
+    live = live_rows(sys_, qp)
+    act = torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1
+    note = "; envs with a live row: " + (", ".join(f"{k} {v}" for k, v in live.items())
+                                         or "no contact rows")
+    max_err = compare(name, sys_, qp, act, note)
+    if name == "grasp" and live.get("capsule_capsule", 0) == 0:
+        fail("grasp had no live capsule-capsule row: the two-body rows went unchecked")
     return sys_, qp, act, max_err
 
 
@@ -159,17 +223,21 @@ def phase_fixture(dev) -> None:
         fail("fixture replay did not step through the kernel")
 
 
-def phase_main(dev, mode: str, card: str) -> int:
-    env = create("ant_tag", batch_size=B, episode_length=1000, randomized_autoreset=True,
+def phase_main(dev, name: str, mode: str, card: str, steps: int = MAIN_STEPS,
+               masked: bool = False) -> int:
+    env = create(name, batch_size=B, episode_length=1000, randomized_autoreset=True,
                  autoreset_mode=mode, device=dev)
+    if masked:
+        env = MaskedObservationWrapper(env, env_name=name, hidden=("VELOCITY",))
+    tag = f"{'masked_' if masked else ''}{name}:{mode}"
     s = env.reset(jr.PRNGKey(0, dev))
     g = torch.Generator(device=dev).manual_seed(0)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     dones = torch.zeros((), device=dev)
 
-    def run(steps):
+    def run(n):
         nonlocal s, finite, dones
-        for _ in range(steps):
+        for _ in range(n):
             action = torch.rand(B, env.action_size, generator=g, device=dev) * 2 - 1
             s = env.step(s, action)
             finite &= torch.isfinite(s.obs).all() & torch.isfinite(s.reward).all()
@@ -178,19 +246,24 @@ def phase_main(dev, mode: str, card: str) -> int:
     run(WARMUP_STEPS)
     torch.cuda.synchronize()
     whole_step.launches = 0
+    dones.zero_()
     t0 = time.perf_counter()
-    run(MAIN_STEPS)
+    run(steps)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = whole_step.launches
-    rate = B * MAIN_STEPS / elapsed
-    print(f"[main:{mode}] {MAIN_STEPS} steps x {B} envs in {elapsed:.3f} s = {rate:.1f} "
+    rate = B * steps / elapsed
+    print(f"[main:{tag}] {steps} steps x {B} envs in {elapsed:.3f} s = {rate:.1f} "
           f"env-steps/s on {card}; kernel launches {launches}; episodes ended "
           f"{int(dones)}; obs/reward finite: {bool(finite)}", flush=True)
-    if launches != MAIN_STEPS:
-        fail(f"main path ({mode}) launched the kernel {launches} times for {MAIN_STEPS} steps")
+    if launches != steps:
+        fail(f"main path ({tag}) launched the kernel {launches} times for {steps} steps")
     if not bool(finite):
-        fail(f"main path ({mode}) produced non-finite obs or rewards")
+        fail(f"main path ({tag}) produced non-finite obs or rewards")
+    if masked and float(s.obs[:, VELOCITY[name]].abs().max()) != 0.0:
+        fail(f"main path ({tag}) leaked a hidden VELOCITY entry")
+    if name == "humanoid" and int(dones) == 0:
+        fail(f"main path ({tag}) ended no episode: the autoreset select went unexercised")
     return launches
 
 
@@ -204,24 +277,32 @@ def main() -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     phase_build()
-    sys_, qp, act, max_err = phase_kernel_vs_plain(dev)
+    compared = {"ant_tag": phase_kernel_vs_plain(dev)}
+    for name in STOCK_WARM_STEPS:
+        compared[name] = phase_stock_kernel_vs_plain(dev, name)
     phase_fixture(dev)
-    launches = phase_main(dev, "cached", card)
-    phase_main(dev, "naive", card)
+    launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
+    phase_main(dev, "ant_tag", "naive", card)
+    for name in MASKED_MAIN:
+        launches[name] = phase_main(dev, name, "cached", card, masked=True)
+    for name in MASKED_OTHER:
+        launches[name] = phase_main(dev, name, "cached", card, steps=OTHER_STEPS, masked=True)
 
-    kernel_ms = cuda_ms(lambda: whole_step.launch(sys_, qp, act), reps=50)
-    plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=5, warmup=1)
-    bound, bound_by = whole_step.bound_ms(sys_, B)
-    print(f"[times] one control step at B={B}: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); {card}", flush=True)
-
-    print(json.dumps({"kernels": [{
-        "name": "whole_step", "route": "cuda",
-        "source": "pobrax_tpu_torch/csrc/whole_step.cu",
-        "replaces": "pobrax_tpu/physics/pallas_step.py:119",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-        "library_ms": None}]}), flush=True)
+    entries = []
+    for name, (sys_, qp, act, max_err) in compared.items():
+        kernel_ms = cuda_ms(lambda: whole_step.launch(sys_, qp, act), reps=50)
+        plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=5, warmup=1)
+        bound, bound_by = whole_step.bound_ms(sys_, B)
+        print(f"[times:{name}] one control step at B={B}: kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); {card}", flush=True)
+        entries.append({
+            "name": f"whole_step[{name}]", "route": "cuda",
+            "source": "pobrax_tpu_torch/csrc/whole_step.cu",
+            "replaces": "pobrax_tpu/physics/pallas_step.py:119",
+            "launches": launches[name], "max_abs_err": max_err,
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

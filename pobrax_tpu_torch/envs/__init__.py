@@ -1,8 +1,11 @@
 """Env registry and factory; the port of `pobrax_tpu/envs/__init__.py`.
 
 `create(env_name, ..., device=None)` assembles the wrapper stack in the JAX
-factory's order: ActionRepeat -> Episode -> Vmap -> autoreset. The registry
-holds `ant_tag` only; the other envs are queued in ROADMAP.md.
+factory's order: ActionRepeat -> Episode -> Vmap -> autoreset.
+`MaskedObservationWrapper(env, env_name=..., hidden=...)` on top makes the
+PO variant of a stock env, as `bench.py`'s `masked_<name>` does. The ant
+family other than `ant_tag`, the planar envs, acrobot and fast are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -12,9 +15,25 @@ from typing import Optional
 from pobrax_tpu_torch.envs import wrappers
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.base import Env, State, Wrapper
+from pobrax_tpu_torch.envs.fetch import Fetch
+from pobrax_tpu_torch.envs.grasp import Grasp
+from pobrax_tpu_torch.envs.humanoid import Humanoid, HumanoidStandup
+from pobrax_tpu_torch.envs.masked import MaskedObservationWrapper
+from pobrax_tpu_torch.envs.pendulum import InvertedDoublePendulum, InvertedPendulum
+from pobrax_tpu_torch.envs.reacher import Reacher, ReacherAngle
+from pobrax_tpu_torch.envs.ur5e import Ur5e
 
 _envs = {
     "ant_tag": AntTagEnv,
+    "fetch": Fetch,
+    "grasp": Grasp,
+    "humanoid": Humanoid,
+    "humanoidstandup": HumanoidStandup,
+    "inverted_pendulum": InvertedPendulum,
+    "inverted_double_pendulum": InvertedDoublePendulum,
+    "reacher": Reacher,
+    "reacherangle": ReacherAngle,
+    "ur5e": Ur5e,
 }
 
 
@@ -36,7 +55,7 @@ def create(
     cached AutoResetWrapper for a randomised one, chosen by `autoreset_mode`:
     'naive' (resample every step — reference parity) or 'cached' (cached
     fresh states refreshed every 200 steps). `substeps=N` retunes the
-    integrator (8 and 10 are supported; 10 is the default)."""
+    integrator."""
     if env_name not in _envs:
         raise ValueError(
             f"env {env_name!r} is not ported to pobrax_tpu_torch yet (available: "
@@ -67,4 +86,6 @@ def create(
     return env
 
 
-__all__ = ["AntTagEnv", "Env", "State", "Wrapper", "create", "wrappers"]
+__all__ = ["AntTagEnv", "Env", "Fetch", "Grasp", "Humanoid", "HumanoidStandup",
+           "InvertedDoublePendulum", "InvertedPendulum", "MaskedObservationWrapper",
+           "Reacher", "ReacherAngle", "State", "Ur5e", "Wrapper", "create", "wrappers"]

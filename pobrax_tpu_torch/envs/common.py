@@ -1,5 +1,5 @@
-"""Shared observation assembly for the ant family; the port of
-`pobrax_tpu/envs/common.py`."""
+"""Shared observation assembly for the ant family (the port of
+`pobrax_tpu/envs/common.py`), and the target placement the stock envs share."""
 
 from __future__ import annotations
 
@@ -28,6 +28,21 @@ def ant_full_obs(sys: System, qp: QP, info: Info) -> List[torch.Tensor]:
         torch.clamp(info.contact.ang, -1, 1).reshape(B, -1),
     ]
     return qpos + qvel + cfrc
+
+
+def polar_point(radius: torch.Tensor, theta: torch.Tensor, z) -> torch.Tensor:
+    """(B, 3) points (radius cos theta, radius sin theta, z) of the stock
+    envs' target draws; `z` a number or a (B,) tensor."""
+    z = torch.as_tensor(z, dtype=radius.dtype, device=radius.device).expand_as(radius)
+    return torch.stack([radius * torch.cos(theta), radius * torch.sin(theta), z], dim=-1)
+
+
+def teleport(qp: QP, body: int, pos: torch.Tensor, where=None) -> QP:
+    """`qp` with body `body` moved to `pos` (B, 3), in every env or only
+    where the (B,) bool `where` holds."""
+    new = qp.pos.clone()
+    new[:, body] = pos if where is None else torch.where(where[:, None], pos, qp.pos[:, body])
+    return qp.replace(pos=new)
 
 
 def dead_and_reward(qp: QP, torso_idx: int, dying_cost: float):

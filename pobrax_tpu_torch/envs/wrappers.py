@@ -1,5 +1,5 @@
 """Episode control, batching and autoreset wrappers; the port of
-`pobrax_tpu/envs/wrappers.py` for the AntTag main path.
+`pobrax_tpu/envs/wrappers.py` for the main paths.
 
 Port envs are natively batched, so `VmapWrapper` only splits one key into a
 batch of keys. Autoreset semantics match the JAX wrappers:

@@ -1,24 +1,28 @@
 """The whole-step kernel's constant tables, built on the host from a `System`.
 
 The host half of `pobrax_tpu/physics/fused.py`: the joint table
-(fused.py:365-382), the contact row lists (:385-398), frozen bodies and their
-static rotations (:405-411), the vectorised capsule-box and point-plane
-phases (`compile_cb_vec`, `compile_pp_vec`: fused.py:138-208, :297-340) and
+(fused.py:365-382), the thruster table (:400-403), the contact row lists
+(:385-398), frozen bodies and their static rotations (:405-411), the
+vectorised capsule-box and point-plane phases over rows against frozen
+bodies (`compile_cb_vec`, `compile_pp_vec`: fused.py:138-208, :297-340) and
 the integrator and contact constants (:352-363). `compile_cb_vec`,
 `compile_pp_vec` and `joint_table` return what their fused.py twins return;
 tests/test_torch_scene.py holds them equal.
 
 `pack` lays the tables out as one flat buffer of 32-bit words in the C
 structs of `csrc/whole_step.cuh` (Header, then Body x n, Joint x nj,
-PointPlane x npp, CapsuleBox x ncb). The kernel loops over these rows at run
-time, so one build of the kernel serves every System it covers.
+Thruster x nt, PointPlane x npp, SphereSphere x nss, CapsuleCapsule x ncc,
+CapsuleBox x ncb). The kernel loops over these rows at run time, so one build
+of the kernel serves every System it covers.
 
-Coverage (stages (a) and (b) of the port): 1-dof hinge joints with torque
-actuators, point-plane rows against frozen planes, capsule-box rows against
-frozen boxes, per-axis frozen masks. Anything else — 2- and 3-dof joints,
-angle servos, thrusters, sphere-sphere or capsule-capsule rows, rows against
-a moving plane or box, more than `MAX_BODIES` bodies — raises ValueError;
-those are stage (c).
+Coverage: the whole engine — 1-, 2- and 3-dof joints with torque or
+angle-servo actuators, thrusters, per-axis frozen masks, and point-plane,
+sphere-sphere, capsule-capsule and capsule-box rows whether or not their
+second body is frozen. A point-plane or capsule-box row against a frozen body
+folds that body's frame into the row; one against a moving body carries the
+frame in the body's own coordinates and is turned into the world each
+substep. The one limit is `MAX_BODIES` bodies (the kernel's per-thread
+arrays): `build` raises ValueError for more.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Dict, List
 
 import numpy as np
 
+from pobrax_tpu_torch.physics.joints import ANGLE_SERVO_GAIN
+
 # must equal ws::kMaxBodies in csrc/whole_step.cuh (the per-thread arrays)
 MAX_BODIES = 16
 
@@ -34,24 +40,33 @@ MAX_BODIES = 16
 # with kind "i" (int32) or "f" (float32). whole_step.py checks the word counts
 # against the compiled library's.
 HEADER = [("n_bodies", "i", 1), ("n_act", "i", 1), ("substeps", "i", 1),
-          ("n_joints", "i", 1), ("n_pp", "i", 1), ("n_cb", "i", 1),
+          ("n_joints", "i", 1), ("n_thr", "i", 1), ("n_pp", "i", 1), ("n_ss", "i", 1),
+          ("n_cc", "i", 1), ("n_cb", "i", 1),
           ("h", "f", 1), ("half_h", "f", 1), ("vel_damp", "f", 1), ("ang_damp", "f", 1),
           ("gravity", "f", 3), ("baumgarte", "f", 1), ("one_plus_e", "f", 1),
-          ("friction", "f", 1)]
+          ("friction", "f", 1), ("servo_gain", "f", 1)]
 BODY = [("inv_mass", "f", 1), ("inv_inertia", "f", 3), ("active_pos", "f", 3),
         ("active_rot", "f", 3), ("frozen", "i", 1), ("rot_free", "i", 1),
         ("default_rot", "f", 4)]
-JOINT = [("parent", "i", 1), ("child", "i", 1), ("act_idx", "i", 1),
-         ("off_p", "f", 3), ("off_c", "f", 3), ("q_j", "f", 4), ("lim_lo", "f", 1),
-         ("lim_hi", "f", 1), ("k", "f", 1), ("kd", "f", 1), ("klim", "f", 1),
+JOINT = [("parent", "i", 1), ("child", "i", 1), ("dof", "i", 1), ("act_idx", "i", 1),
+         ("act_kind", "i", 1), ("off_p", "f", 3), ("off_c", "f", 3), ("q_j", "f", 4),
+         ("lim", "f", 6), ("k", "f", 1), ("kd", "f", 1), ("klim", "f", 1),
          ("kang", "f", 1), ("act_k", "f", 1)]
-POINT_PLANE = [("a", "i", 1), ("b", "i", 1), ("point", "f", 3), ("radius", "f", 1),
-               ("normal", "f", 3), ("off_w", "f", 3), ("invm_a", "f", 1),
+THRUSTER = [("body", "i", 1), ("act", "i", 1), ("dir", "f", 3), ("strength", "f", 1),
+            ("inv_mass", "f", 1)]
+POINT_PLANE = [("a", "i", 1), ("b", "i", 1), ("b_moves", "i", 1), ("point", "f", 3),
+               ("radius", "f", 1), ("normal", "f", 3), ("off_w", "f", 3), ("invm_a", "f", 1),
                ("inertia_a", "f", 3)]
-CAPSULE_BOX = [("a", "i", 1), ("b", "i", 1), ("cap", "i", 1), ("e0", "f", 3),
-               ("e1", "f", 3), ("radius", "f", 1), ("rot", "f", 9), ("box_off_w", "f", 3),
-               ("halfsize", "f", 3), ("invm_a", "f", 1), ("inertia_a", "f", 3)]
-STRUCTS = (HEADER, BODY, JOINT, POINT_PLANE, CAPSULE_BOX)
+SPHERE_SPHERE = [("a", "i", 1), ("b", "i", 1), ("pa", "f", 3), ("ra", "f", 1),
+                 ("pb", "f", 3), ("rb", "f", 1)]
+CAPSULE_CAPSULE = [("a", "i", 1), ("b", "i", 1), ("e0a", "f", 3), ("e1a", "f", 3),
+                   ("ra", "f", 1), ("e0b", "f", 3), ("e1b", "f", 3), ("rb", "f", 1)]
+CAPSULE_BOX = [("a", "i", 1), ("b", "i", 1), ("cap", "i", 1), ("b_moves", "i", 1),
+               ("e0", "f", 3), ("e1", "f", 3), ("radius", "f", 1), ("rot", "f", 9),
+               ("box_q", "f", 4), ("box_off_w", "f", 3), ("halfsize", "f", 3),
+               ("invm_a", "f", 1), ("inertia_a", "f", 3)]
+STRUCTS = (HEADER, BODY, JOINT, THRUSTER, POINT_PLANE, SPHERE_SPHERE, CAPSULE_CAPSULE,
+           CAPSULE_BOX)
 
 
 def words(struct) -> int:
@@ -229,49 +244,46 @@ CB_FIELDS = ("a", "e0", "e1", "radius", "b", "box_pos", "box_quat", "halfsize")
 
 
 def build(sys) -> Dict:
-    """Every constant the kernel reads, as host values; raises ValueError on
-    a feature the kernel does not cover."""
+    """Every constant the kernel reads, as host values; raises ValueError for
+    a System with more bodies than the kernel's per-thread arrays hold."""
     body, ct = sys.body, sys.contacts
     n = sys.num_bodies
     if n > MAX_BODIES:
-        raise ValueError(f"whole-step kernel: {n} bodies exceed MAX_BODIES={MAX_BODIES}")
-    joints = joint_table(sys)
-    if any(j["dof"] != 1 for j in joints):
-        raise ValueError("whole-step kernel: 2- and 3-dof joints are not covered yet "
-                         "(ROADMAP kernel stage (c))")
-    if any(j["act_idx"] >= 0 and j["act_kind"] != 0 for j in joints):
-        raise ValueError("whole-step kernel: angle-servo actuators are not covered yet "
-                         "(ROADMAP kernel stage (c))")
-    if len(sys.config.thrusters):
-        raise ValueError("whole-step kernel: thrusters are not covered yet "
-                         "(ROADMAP kernel stage (c))")
-    if ct.sphere_sphere is not None or ct.capsule_capsule is not None:
-        raise ValueError("whole-step kernel: sphere-sphere and capsule-capsule rows are not "
-                         "covered yet (ROADMAP kernel stage (c))")
+        raise ValueError(f"whole-step kernel: {n} bodies exceed MAX_BODIES={MAX_BODIES} "
+                         f"(the per-thread arrays of csrc/whole_step.cuh)")
     frozen = [bool(f) for f in body.frozen]
-    pp_rows = contact_rows(ct.point_plane, PP_FIELDS)
-    cb_rows = contact_rows(ct.capsule_box, CB_FIELDS)
-    if any(not frozen[r["b"]] for r in pp_rows):
-        raise ValueError("whole-step kernel: point-plane rows need a frozen plane body")
-    if any(not frozen[r["b"]] for r in cb_rows):
-        raise ValueError("whole-step kernel: capsule-box rows need a frozen box body "
-                         "(ROADMAP kernel stage (c))")
-
     default_rot = [tuple(float(v) for v in sys._default_pose[1][i]) for i in range(n)]
     inv_mass = [float(m) for m in body.inv_mass]
     inv_inertia = [tuple(float(v) for v in row) for row in body.inv_inertia]
+
+    # rows against a frozen body fold its frame in (fused.py's vectorised
+    # phases); rows against a moving one keep it in the body's frame
+    pp_rows = contact_rows(ct.point_plane, PP_FIELDS)
+    cb_rows = contact_rows(ct.capsule_box, CB_FIELDS)
+    pp_frozen = [r for r in pp_rows if frozen[r["b"]]]
+    cb_frozen = [r for r in cb_rows if frozen[r["b"]]]
+    thrusters = [dict(body=int(b), act=sys._thruster_act0 + t,
+                      dir=tuple(float(v) for v in sys._thruster_dir[t]),
+                      strength=float(sys._thruster_strength[t]), inv_mass=inv_mass[int(b)])
+                 for t, b in enumerate(sys._thruster_body)]
     integ = sys.integrator
     return dict(
         n_bodies=n, n_act=sys.action_size, substeps=integ.substeps,
         h=integ.h, vel_damp=integ.vel_damp, ang_damp=integ.ang_damp,
         gravity=tuple(float(g) for g in integ.gravity),
         baumgarte=ct.baumgarte_erp / ct.h_sub, elasticity=ct.elasticity,
-        friction=ct.friction,
+        friction=ct.friction, servo_gain=ANGLE_SERVO_GAIN,
         frozen=frozen, default_rot=default_rot, inv_mass=inv_mass, inv_inertia=inv_inertia,
         active_pos=body.active_pos, active_rot=body.active_rot,
-        joints=joints,
-        pp_vec=compile_pp_vec(pp_rows, default_rot, inv_mass, inv_inertia) if pp_rows else None,
-        cb_vec=compile_cb_vec(cb_rows, default_rot, inv_mass, inv_inertia) if cb_rows else None,
+        joints=joint_table(sys), thrusters=thrusters,
+        pp_moving=[r for r in pp_rows if not frozen[r["b"]]],
+        pp_vec=(compile_pp_vec(pp_frozen, default_rot, inv_mass, inv_inertia)
+                if pp_frozen else None),
+        ss_rows=contact_rows(ct.sphere_sphere, SS_FIELDS),
+        cc_rows=contact_rows(ct.capsule_capsule, CC_FIELDS),
+        cb_moving=[r for r in cb_rows if not frozen[r["b"]]],
+        cb_vec=(compile_cb_vec(cb_frozen, default_rot, inv_mass, inv_inertia)
+                if cb_frozen else None),
     )
 
 
@@ -289,16 +301,26 @@ def _record(struct, values: Dict) -> np.ndarray:
     return out
 
 
+def row_counts(t: Dict) -> Dict[str, int]:
+    """The number of rows of each table of `build`'s output."""
+    pv, cv = t["pp_vec"], t["cb_vec"]
+    return dict(
+        n_joints=len(t["joints"]), n_thr=len(t["thrusters"]),
+        n_pp=len(t["pp_moving"]) + (len(pv["points"]) if pv else 0),
+        n_ss=len(t["ss_rows"]), n_cc=len(t["cc_rows"]),
+        n_cb=len(t["cb_moving"]) + (int(cv["cap_repeats"].sum()) if cv else 0))
+
+
 def pack(t: Dict) -> np.ndarray:
-    """The tables of `build` as the kernel's flat buffer of 32-bit words."""
+    """The tables of `build` as the kernel's flat buffer of 32-bit words.
+    Point-plane and capsule-box rows against a moving body come first, as
+    fused.py's scalar rows run before its vectorised ones."""
     n = t["n_bodies"]
     recs = [_record(HEADER, dict(
-        n_bodies=n, n_act=t["n_act"], substeps=t["substeps"], n_joints=len(t["joints"]),
-        n_pp=len(t["pp_vec"]["points"]) if t["pp_vec"] else 0,
-        n_cb=int(t["cb_vec"]["cap_repeats"].sum()) if t["cb_vec"] else 0,
+        n_bodies=n, n_act=t["n_act"], substeps=t["substeps"], **row_counts(t),
         h=t["h"], half_h=0.5 * t["h"], vel_damp=t["vel_damp"], ang_damp=t["ang_damp"],
         gravity=t["gravity"], baumgarte=t["baumgarte"], one_plus_e=1.0 + t["elasticity"],
-        friction=t["friction"]))]
+        friction=t["friction"], servo_gain=t["servo_gain"]))]
     for i in range(n):
         recs.append(_record(BODY, dict(
             inv_mass=t["inv_mass"][i], inv_inertia=t["inv_inertia"][i],
@@ -306,25 +328,42 @@ def pack(t: Dict) -> np.ndarray:
             frozen=int(t["frozen"][i]), rot_free=int(np.any(t["active_rot"][i] > 0)),
             default_rot=t["default_rot"][i])))
     for j in t["joints"]:
+        lim = np.zeros((3, 2))
+        lim[:j["dof"]] = j["lim"]
         recs.append(_record(JOINT, dict(
-            parent=j["parent"], child=j["child"], act_idx=j["act_idx"], off_p=j["off_p"],
-            off_c=j["off_c"], q_j=j["q_j"], lim_lo=j["lim"][0][0], lim_hi=j["lim"][0][1],
+            parent=j["parent"], child=j["child"], dof=j["dof"], act_idx=j["act_idx"],
+            act_kind=j["act_kind"], off_p=j["off_p"], off_c=j["off_c"], q_j=j["q_j"], lim=lim,
             k=j["k"], kd=j["kd"], klim=j["klim"], kang=j["kang"], act_k=j["act_k"])))
+    recs += [_record(THRUSTER, th) for th in t["thrusters"]]
+    for r in t["pp_moving"]:
+        recs.append(_record(POINT_PLANE, dict(
+            a=r["a"], b=r["b"], b_moves=1, point=r["point"], radius=r["radius"],
+            normal=_qrot_f((0.0, 0.0, 1.0), tuple(r["plane_quat"])), off_w=r["plane_pos"],
+            invm_a=t["inv_mass"][r["a"]], inertia_a=t["inv_inertia"][r["a"]])))
     pv = t["pp_vec"]
     for k, (a, point) in enumerate(pv["points"] if pv else []):
         recs.append(_record(POINT_PLANE, dict(
-            a=a, b=pv["uniq_b"][int(np.argmax(pv["b_mask"][:, k]))], point=point,
+            a=a, b=pv["uniq_b"][int(np.argmax(pv["b_mask"][:, k]))], b_moves=0, point=point,
             radius=pv["radius"][k], normal=[pv["normal_cols"][c][k] for c in range(3)],
             off_w=pv["off_w"][k], invm_a=pv["invm_a"][k], inertia_a=pv["inertia_a"][k])))
+    recs += [_record(SPHERE_SPHERE, r) for r in t["ss_rows"]]
+    recs += [_record(CAPSULE_CAPSULE, r) for r in t["cc_rows"]]
     cv = t["cb_vec"]
+    n_caps = len(cv["caps"]) if cv else 0
+    for k, r in enumerate(t["cb_moving"]):  # capsule ids after the frozen rows' own
+        recs.append(_record(CAPSULE_BOX, dict(
+            a=r["a"], b=r["b"], cap=n_caps + k, b_moves=1, e0=r["e0"], e1=r["e1"],
+            radius=r["radius"], rot=np.zeros(9), box_q=r["box_quat"], box_off_w=r["box_pos"],
+            halfsize=r["halfsize"], invm_a=t["inv_mass"][r["a"]],
+            inertia_a=t["inv_inertia"][r["a"]])))
     if cv:
         row_cap = np.repeat(np.arange(len(cv["caps"])), cv["cap_repeats"])
         for k in range(len(row_cap)):
             a, e0, e1 = cv["caps"][row_cap[k]]
             recs.append(_record(CAPSULE_BOX, dict(
                 a=a, b=cv["uniq_b"][int(np.argmax(cv["b_mask"][:, k, 0]))], cap=row_cap[k],
-                e0=e0, e1=e1, radius=cv["radius"][k],
+                b_moves=0, e0=e0, e1=e1, radius=cv["radius"][k],
                 rot=[cv["rot_cols"][i][j][k] for i in range(3) for j in range(3)],
-                box_off_w=cv["box_off_w"][k], halfsize=cv["halfsize"][k],
+                box_q=np.zeros(4), box_off_w=cv["box_off_w"][k], halfsize=cv["halfsize"][k],
                 invm_a=cv["invm_a"][k], inertia_a=cv["inertia_a"][k])))
     return np.concatenate(recs)

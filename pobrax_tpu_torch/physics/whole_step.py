@@ -86,7 +86,7 @@ def build() -> Tuple[Path, str]:
 
 
 def _check_layout(lib: ctypes.CDLL) -> None:
-    got = (ctypes.c_int * 8)()
+    got = (ctypes.c_int * 16)()
     n = lib.ws_layout_words(got)
     want = [step_tables.words(s) for s in step_tables.STRUCTS]
     if list(got[:n]) != want:
@@ -170,33 +170,56 @@ def launch(sys, qp: QP, act: torch.Tensor) -> Tuple[QP, Info]:
 # ---- the work one launch must do, for the bound ----------------------------
 
 # fp32 operations of each piece of csrc/whole_step.cuh, counted from the
-# source: add, sub, mul, div, min, max, abs, sqrt, rsqrt and atan2 count one
-# each (a fused multiply-add two, as in the card's 67 TFLOP/s peak); compares
-# and selects are not counted. Building blocks: V3 add/scale 3, dot 5,
-# cross 9, qmul 28, qrot 30, to_local/to_world 15, resolve_a 89.
-OPS_JOINT = 328            # spring, alignment, limit, damping, force sums
-OPS_ACTUATOR = 18          # torque actuator on a hinge
+# source: add, sub, mul, div, min, max, abs, sqrt, rsqrt, atan2 and asin
+# count one each (a fused multiply-add two, as in the card's 67 TFLOP/s peak);
+# compares, selects and negations are not counted. Building blocks: V3
+# add/scale 3, dot 5, cross 9, qmul 28, qrot 30, to_local/to_world 15,
+# quat_mat 39, resolve_a 89, resolve 126 plus 21 (body a) and 24 (body b)
+# for each side that moves.
+OPS_JOINT = 252            # frames, spring, damping, force and torque sums
+OPS_JOINT_DOF = 40         # per dof: world axis and limit torque
+OPS_ALIGN = {1: 37, 2: 35, 3: 0}     # alignment torque, by dof
+OPS_ANGLES = {1: 2, 2: 27, 3: 27}    # hinge atan2, or the Euler readout
+OPS_ACTUATOR = 12          # an actuated joint's torque sums
+OPS_ACT_DOF = {0: 9, 1: 10}          # per dof: torque (0) or angle servo (1)
+OPS_THRUSTER = 10
 OPS_BODY_FORCES = 9        # total_v / total_a of a body that moves
 OPS_AXIS_VEL, OPS_AXIS_POS, OPS_AXIS_ROT = 3, 2, 3  # per active axis
 OPS_ROT_INTEGRATE = 48     # quaternion derivative and renormalisation
 OPS_BODY_CONTACT = 1       # per active axis: vel/ang += impulse
 OPS_BODY_INFO = 18         # six Info sums per body
-OPS_PP_ROW = 146           # world point, penetration, resolve_a, row sums
+OPS_RESOLVE, OPS_RESOLVE_SIDE = 126, (21, 24)  # two-body impulse; body a, body b
+OPS_PP_ROW = 146           # frozen plane: world point, penetration, resolve_a, sums
+OPS_PP_MOVING_ROW = 111    # moving plane: the same with the plane turned, plus resolve
+OPS_SS_ROW = 92            # two world centres and the contact, plus resolve
+OPS_CC_ROW = 226           # four world endpoints, closest points, contact, plus resolve
 OPS_CB_CAPSULE = 66        # world endpoints of a capsule, once per capsule
-OPS_CB_ROW = 68            # box-frame segment and row sums
-OPS_CB_SAMPLE = 183        # point-box SDF and resolve_a, 3 samples per row
+OPS_CB_ROW = 68            # frozen box: box-frame segment and row sums
+OPS_CB_MOVING_ROW = 159    # moving box: its frame each substep, box-frame segment
+OPS_CB_SAMPLE = 183        # frozen box: point-box SDF, resolve_a, sums; 3 per row
+OPS_CB_SDF = 88            # moving box: point-box SDF, plus resolve; 3 per row
 OPS_FLUSH = 12             # per body per contact phase
+
+
+def _resolve_ops(t: Dict, a: int, b: int) -> int:
+    moves = [t["inv_mass"][a] != 0.0, t["inv_mass"][b] != 0.0]
+    return OPS_RESOLVE + sum(side for side, m in zip(OPS_RESOLVE_SIDE, moves) if m)
 
 
 def cost(sys, B: int) -> Dict[str, float]:
     """Operations and bytes one launch needs for `B` envs of `sys`: each
     input read once, each output written once; the kernel is branch-free in
-    the data, so the count does not depend on the state."""
+    the state (its branches follow the tables), so the count does not depend
+    on the data."""
     t = step_tables.build(sys)
     n = t["n_bodies"]
     ops = 0
     for j in t["joints"]:
-        ops += OPS_JOINT + (OPS_ACTUATOR if j["act_idx"] >= 0 else 0)
+        dof = j["dof"]
+        ops += OPS_JOINT + dof * OPS_JOINT_DOF + OPS_ALIGN[dof] + OPS_ANGLES[dof]
+        if j["act_idx"] >= 0:
+            ops += OPS_ACTUATOR + dof * OPS_ACT_DOF[j["act_kind"]]
+    ops += len(t["thrusters"]) * OPS_THRUSTER
     for i in range(n):
         ap, ar = t["active_pos"][i] > 0, t["active_rot"][i] > 0
         if ap.any() or ar.any():
@@ -204,9 +227,18 @@ def cost(sys, B: int) -> Dict[str, float]:
         ops += ap.sum() * (OPS_AXIS_VEL + OPS_AXIS_POS) + ar.sum() * OPS_AXIS_ROT
         ops += OPS_ROT_INTEGRATE * int(ar.any())
         ops += (ap.sum() + ar.sum()) * OPS_BODY_CONTACT + OPS_BODY_INFO
+    for r in t["pp_moving"]:
+        ops += OPS_PP_MOVING_ROW + _resolve_ops(t, r["a"], r["b"])
     if t["pp_vec"]:
         pv = t["pp_vec"]
         ops += len(pv["points"]) * OPS_PP_ROW + len(pv["body_slices"]) * OPS_FLUSH
+    for r in t["ss_rows"]:
+        ops += OPS_SS_ROW + _resolve_ops(t, r["a"], r["b"])
+    for r in t["cc_rows"]:
+        ops += OPS_CC_ROW + _resolve_ops(t, r["a"], r["b"])
+    for r in t["cb_moving"]:
+        ops += (OPS_CB_CAPSULE + OPS_CB_MOVING_ROW
+                + 3 * (OPS_CB_SDF + _resolve_ops(t, r["a"], r["b"])))
     if t["cb_vec"]:
         cv = t["cb_vec"]
         ops += (len(cv["caps"]) * OPS_CB_CAPSULE

@@ -40,13 +40,14 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
-    from pobrax_tpu_torch.envs import create
+    from pobrax_tpu_torch.envs import _envs, create
     from pobrax_tpu_torch.envs.ant_tag import AntTagEnv, extend_ant_cfg
     from pobrax_tpu_torch.physics import System
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        create("ant_tag", batch_size=2)
+    for name in sorted(_envs):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            create(name, batch_size=2)
     with pytest.raises(RuntimeError):
         AntTagEnv()
     with pytest.raises(RuntimeError):

@@ -5,8 +5,12 @@ also compiles as plain C++. This file builds it with g++ (through
 csrc/whole_step_host.cpp, no torch headers) into a small library loaded with
 ctypes, and holds it against the port's plain step at the fused-vs-generic
 tolerances of tests/test_fused.py (pos/rot 1e-5, vel/ang/contact 1e-3), so a
-wrong kernel fails here, before it reaches a GPU. No entry point of the
-package loads this build. Skips where g++ is missing.
+wrong kernel fails here, before it reaches a GPU: on AntTag, on every stock
+System of the port (multi-dof joints, angle servos, thrusters, two-body
+capsule contacts), on tests/test_fused.py's 2-dof + servo system and its
+mini system (every row kind, a thruster), and over a 20-step humanoid
+rollout against the JAX package. No entry point of the package loads this
+build. Skips where g++ is missing.
 """
 
 import ctypes
@@ -16,15 +20,21 @@ import os
 import shutil
 import subprocess
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from pobrax_tpu.envs import create as jax_create
+from pobrax_tpu_torch import envs
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import create
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
+from pobrax_tpu_torch.physics import config as tc
 from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.physics.state import P, QP, Info
+from pobrax_tpu_torch.physics.system import System
+from tests.test_torch_physics import mini_cfg, multidof_cfg
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "ref_ant_tag_s7.npz")
 _WIDTHS = (3, 4, 3, 3, 3, 3, 3, 3, 3, 3)
@@ -64,7 +74,9 @@ def host_step(lib, sys_, qp, act):
     return QP(p, r, v, a), Info(P(cv, ca), P(jv, ja), P(av, aa))
 
 
-def assert_close(got, want):
+def assert_close(got, want, info_rtol=1e-5):
+    """pos/rot 1e-5, vel/ang/contact 1e-3; the joint and actuator Info sums
+    (accelerations up to ~1e4) to `info_rtol` of their largest entry."""
     (q, i), (q_ref, i_ref) = got, want
     for name, tol in (("pos", 1e-5), ("rot", 1e-5), ("vel", 1e-3), ("ang", 1e-3)):
         torch.testing.assert_close(getattr(q, name), getattr(q_ref, name), rtol=0, atol=tol,
@@ -74,8 +86,8 @@ def assert_close(got, want):
                                    atol=1e-3, msg=f"contact.{f}")
         for part in ("joint", "actuator"):
             want_t = getattr(getattr(i_ref, part), f)
-            torch.testing.assert_close(getattr(getattr(i, part), f), want_t, rtol=1e-5,
-                                       atol=1e-5 * max(1.0, float(want_t.abs().max())),
+            torch.testing.assert_close(getattr(getattr(i, part), f), want_t, rtol=info_rtol,
+                                       atol=info_rtol * max(1.0, float(want_t.abs().max())),
                                        msg=f"{part}.{f}")
 
 
@@ -136,3 +148,87 @@ def test_host_kernel_replays_fixture(host_lib, monkeypatch):
     assert len(calls) == meta["steps"]
     np.testing.assert_allclose(np.stack(obs), fx["obs"], rtol=0, atol=1e-3)
     np.testing.assert_array_equal(done, fx["done"])
+
+
+# plain steps from reset that leave contacts live: the humanoid's feet land
+# after ~10 steps; the fetch dog spawns with its feet in the ground
+STOCK_WARM_STEPS = {"humanoid": 20, "grasp": 12, "fetch": 0, "ur5e": 5, "reacherangle": 5,
+                    "inverted_double_pendulum": 5}
+
+
+def object_on_finger(env, qp, envs_=slice(None)):
+    """Grasp: the Object moved against the inside of finger f0's distal
+    segment (1.5 cm into both capsules), so its capsule-capsule rows, which
+    pair two moving bodies, are live."""
+    dist, obj = env.sys.body.index["f0_dist"], env.sys.body.index["Object"]
+    pos = qp.pos.clone()
+    pos[envs_, obj] = pos[envs_, dist] + torch.tensor([-0.125, 0.0, 0.0], device=pos.device)
+    return qp.replace(pos=pos)
+
+
+def stock_state(name, B=8):
+    env = envs._envs[name](device="cpu")
+    qp = env.reset(jr.split(jr.PRNGKey(3), B)).qp
+    g = torch.Generator().manual_seed(0)
+    for _ in range(STOCK_WARM_STEPS[name]):
+        qp, _ = env.sys.step_generic(qp, torch.rand(B, env.action_size, generator=g) * 2 - 1)
+    if name == "grasp":
+        qp = object_on_finger(env, qp)
+        assert bool((env.sys.contacts._capsule_capsule(qp)[4] > 0).any(-1).all())
+    return env.sys, qp, torch.rand(B, env.action_size, generator=g) * 2 - 1
+
+
+@pytest.mark.parametrize("name", sorted(STOCK_WARM_STEPS))
+def test_host_kernel_matches_plain_step_on_stock_systems(host_lib, name):
+    """The joint Info sum is k (anchor_p - anchor_c) / m: a difference of two
+    O(1) m anchors, each rounded at ~6e-8, times k / m up to ~4e4 (ur5e's
+    8000 N/m springs on its 0.19 kg wrist), summed over the substeps; so it is
+    held to 1e-4 of its largest entry (the state itself to the usual 1e-5 /
+    1e-3)."""
+    sys_, qp, act = stock_state(name)
+    want = sys_.step_generic(qp, act)
+    if sys_.contacts.point_plane is not None or sys_.contacts.capsule_capsule is not None:
+        assert float(want[1].contact.vel.abs().max()) > 0, "contacts must be live"
+    assert_close(host_step(host_lib, sys_, qp, act), want, info_rtol=1e-4)
+
+
+@pytest.mark.parametrize("scene", ["multidof", "mini"])
+def test_host_kernel_matches_plain_step_on_test_systems(host_lib, scene):
+    """tests/test_fused.py's 2-dof + servo system and its mini system, from
+    seeded jittered states."""
+    sys_ = System((multidof_cfg if scene == "multidof" else mini_cfg)(tc), device="cpu")
+    rs = np.random.RandomState(4)
+    B, n = 8, sys_.num_bodies
+    qp0 = sys_.default_qp()
+    moving = torch.from_numpy(~sys_.body.frozen)[None, :, None].float()
+    qp = QP(pos=qp0.pos + torch.from_numpy(0.03 * rs.randn(B, n, 3).astype(np.float32)),
+            rot=qp0.rot.expand(B, n, 4).contiguous(),
+            vel=moving * torch.from_numpy(0.3 * rs.randn(B, n, 3).astype(np.float32)),
+            ang=moving * torch.from_numpy(0.3 * rs.randn(B, n, 3).astype(np.float32)))
+    act = torch.from_numpy(rs.uniform(-1, 1, (B, sys_.action_size)).astype(np.float32))
+    assert_close(host_step(host_lib, sys_, qp, act), sys_.step_generic(qp, act))
+
+
+def test_host_kernel_replays_jax_humanoid(host_lib, monkeypatch):
+    """A 20-step humanoid rollout through the kernel's code against the JAX
+    env (its generic step on the CPU): obs 1e-3, reward 1e-4, `done` equal."""
+    calls = []
+
+    def step(sys_, qp, act):
+        calls.append(1)
+        return host_step(host_lib, sys_, qp, act)
+
+    monkeypatch.setattr(whole_step, "whole_step", step)
+    B, T = 4, 20
+    kw = dict(episode_length=1000, batch_size=B, auto_reset=False)
+    jenv, tenv = jax_create("humanoid", **kw), create("humanoid", device="cpu", **kw)
+    js, ts = jax.jit(jenv.reset)(jax.random.PRNGKey(5)), tenv.reset(jr.PRNGKey(5))
+    jstep = jax.jit(jenv.step)
+    acts = np.random.RandomState(2).uniform(-1, 1, (T, B, tenv.action_size)).astype(np.float32)
+    for t in range(T):
+        js, ts = jstep(js, acts[t]), tenv.step(ts, torch.from_numpy(acts[t]))
+        np.testing.assert_allclose(ts.obs.numpy(), np.asarray(js.obs), rtol=0, atol=1e-3,
+                                   err_msg=f"step {t}")
+        np.testing.assert_allclose(ts.reward.numpy(), np.asarray(js.reward), rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(ts.done.numpy(), np.asarray(js.done))
+    assert len(calls) == T

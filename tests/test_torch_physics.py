@@ -1,8 +1,9 @@
 """The port's plain physics (pobrax_tpu_torch.physics) against the JAX package.
 
 Seeded numpy states go through both: batched FK, `info`, one `step_generic`
-on AntTag and on tests/test_fused.py's mini system (every row kind,
-thrusters), and the JAX Pallas whole-step kernel in interpret mode. Per
+on AntTag, on tests/test_fused.py's mini system (every row kind, thrusters)
+and on its 2-dof + angle-servo system, and the JAX Pallas whole-step kernel
+in interpret mode on the mini and 2-dof systems. Per
 control step the tolerances are tests/test_fused.py:61-68's: pos/rot 1e-5,
 vel/ang/contact 1e-3 (float32 reassociation through stiff contact impulses).
 The joint and actuator Info sums are accelerations of O(1e3); they are held
@@ -55,9 +56,39 @@ def mini_cfg(c):
     )
 
 
+def multidof_cfg(c):
+    """tests/test_fused.py::test_fused_multidof_and_servo_match_generic's
+    scene, from config module `c`: a 2-dof joint with an angle servo under a
+    hinge with a torque actuator, hanging from a frozen root."""
+    return c.Config(
+        bodies=(
+            c.Body(name="root", frozen=True),
+            c.Body(name="a", colliders=(
+                c.Collider(geom=c.Capsule(radius=0.05, length=0.4)),), mass=1.0),
+            c.Body(name="b", colliders=(
+                c.Collider(geom=c.Capsule(radius=0.05, length=0.4)),), mass=1.0),
+        ),
+        joints=(
+            c.Joint(name="u", parent="root", child="a",
+                    stiffness=4000.0, spring_damping=126.0, angular_damping=5.0,
+                    parent_offset=(0.0, 0.0, 0.0), child_offset=(0.0, 0.0, 0.2),
+                    angle_limits=(c.AngleLimit(-40, 40), c.AngleLimit(-30, 30))),
+            c.Joint(name="h", parent="a", child="b",
+                    stiffness=4000.0, spring_damping=126.0, angular_damping=5.0,
+                    parent_offset=(0.0, 0.0, -0.2), child_offset=(0.0, 0.0, 0.2),
+                    angle_limits=(c.AngleLimit(-60, 10),)),
+        ),
+        actuators=(c.Actuator(name="u", joint="u", strength=20.0, kind="angle"),
+                   c.Actuator(name="h", joint="h", strength=20.0)),
+        default_qps=(c.DefaultQP(name="root", pos=(0.0, 0.0, 1.5)),),
+        dt=0.04, substeps=10,
+    )
+
+
 SCENES = {
     "ant_tag": (jax_ant_tag_cfg, torch_ant_tag_cfg),
     "mini": (lambda: mini_cfg(jc), lambda: mini_cfg(tc)),
+    "multidof": (lambda: multidof_cfg(jc), lambda: multidof_cfg(tc)),
 }
 
 
@@ -122,7 +153,7 @@ def test_default_qp_fk_matches():
                                np.asarray(jsys.default_qp().pos), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("scene", ["ant_tag", "mini"])
+@pytest.mark.parametrize("scene", ["ant_tag", "mini", "multidof"])
 def test_info_matches_generic(scene):
     jsys, tsys = systems(scene)
     arrs = perturbed_state(jsys, 4, seed=1)
@@ -134,7 +165,7 @@ def test_info_matches_generic(scene):
         assert float(np.abs(getattr(got.joint, f).numpy()).max()) == 0.0
 
 
-@pytest.mark.parametrize("scene", ["ant_tag", "mini"])
+@pytest.mark.parametrize("scene", ["ant_tag", "mini", "multidof"])
 def test_step_matches_generic(scene):
     jsys, tsys = systems(scene)
     arrs = perturbed_state(jsys, 4, seed=2)
@@ -167,6 +198,25 @@ def test_plain_step_matches_pallas_interpret():
                                    rtol=0, atol=tol, err_msg=name)
     np.testing.assert_allclose(i.contact.vel.numpy(), np.asarray(i_ref.contact.vel),
                                rtol=0, atol=1e-3)
+
+
+def test_plain_step_matches_pallas_interpret_multidof(monkeypatch):
+    """The same on the 2-dof + angle-servo system: the JAX Pallas kernel,
+    selected by POBRAX_FUSED=1 and POBRAX_PALLAS=1 when the System is built,
+    runs vmapped in interpret mode on the CPU."""
+    monkeypatch.setenv("POBRAX_FUSED", "1")
+    monkeypatch.setenv("POBRAX_PALLAS", "1")
+    sys_ = JSystem(multidof_cfg(jc))
+    monkeypatch.delenv("POBRAX_FUSED")
+    monkeypatch.delenv("POBRAX_PALLAS")
+    assert sys_._fused_step is not None
+    B = 8
+    arrs = perturbed_state(sys_, B, seed=9)
+    act = np.random.RandomState(3).uniform(-1, 1, (B, sys_.action_size)).astype(np.float32)
+    q_ref, i_ref = jax.jit(jax.vmap(sys_.step))(to_jax(arrs), jnp.asarray(act))  # -> Pallas
+    q, i = TSystem(multidof_cfg(tc), device="cpu").step_generic(to_torch(arrs),
+                                                               torch.from_numpy(act))
+    assert_step_close(q_ref, i_ref, q, i)
 
 
 def test_step_matches_generic_substeps_8():

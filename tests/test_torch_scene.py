@@ -4,22 +4,27 @@ Bodies arrays, joint groups and contact-row tables must be EQUAL (they are
 numpy on both sides), and so must the whole-step kernel's host tables:
 `step_tables.joint_table`, `compile_cb_vec` and `compile_pp_vec` against the
 joint table of fused.py:365-382 and fused.py's `_compile_cb_vec` /
-`_compile_pp_vec`. `step_tables.build` raises ValueError on every feature the
-kernel does not cover.
+`_compile_pp_vec`. Every engine feature builds into the kernel's tables and
+the host build of the kernel steps it like the plain step; only a System of
+more than MAX_BODIES bodies (AntGather's scene) raises ValueError.
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
+from pobrax_tpu.envs.ant_gather import AntGatherEnv as JAntGather
 from pobrax_tpu.envs.ant_tag import extend_ant_cfg as jax_ant_tag_cfg
 from pobrax_tpu.physics import fused
 from pobrax_tpu.physics.system import System as JSystem
 from pobrax_tpu_torch.envs.ant_tag import extend_ant_cfg as torch_ant_tag_cfg
 from pobrax_tpu_torch.physics import config as tc
 from pobrax_tpu_torch.physics import step_tables
+from pobrax_tpu_torch.physics.state import QP
 from pobrax_tpu_torch.physics.system import System as TSystem
+from tests.test_torch_kernel_host import assert_close, host_lib, host_step  # noqa: F401
 from tests.test_torch_physics import mini_cfg
 
 
@@ -129,11 +134,12 @@ def test_packed_tables_layout(pair):
             + 36 * step_tables.words(step_tables.CAPSULE_BOX))
     assert buf.dtype == np.float32 and buf.size == want
     header = buf[:step_tables.words(step_tables.HEADER)].view(np.int32)
-    assert list(header[:6]) == [12, 8, 10, 8, 9, 36]
+    # bodies, actions, substeps, joints, thrusters, pp, ss, cc, cb rows
+    assert list(header[:9]) == [12, 8, 10, 8, 0, 9, 0, 0, 36]
 
 
-def _uncovered(kind):
-    """Scenes with one feature the whole-step kernel does not cover yet."""
+def _feature_scene(kind):
+    """Scenes with one feature beyond AntTag's (the mini system has several)."""
     c = tc
     ball = c.Body(name="ball", colliders=(c.Collider(geom=c.Sphere(0.2)),))
     rod = c.Body(name="rod", colliders=(c.Collider(geom=c.Capsule(radius=0.1, length=0.6)),))
@@ -164,7 +170,37 @@ def _uncovered(kind):
 
 @pytest.mark.parametrize("kind", ["mini", "thruster", "sphere_sphere", "capsule_capsule",
                                   "moving_box", "two_dof", "angle_servo"])
-def test_step_tables_reject_uncovered_features(kind):
-    sys_ = TSystem(_uncovered(kind), device="cpu")
-    with pytest.raises(ValueError, match="whole-step kernel"):
+def test_step_tables_cover_features(host_lib, kind):
+    """The scene builds into the kernel's tables, and from a seeded jittered
+    state (the bodies overlap, so every contact row is live) the host build
+    of the kernel steps it as the plain step does."""
+    sys_ = TSystem(_feature_scene(kind), device="cpu")
+    step_tables.pack(step_tables.build(sys_))
+    rs = np.random.RandomState(7)
+    B, n = 4, sys_.num_bodies
+    qp0 = sys_.default_qp()
+    moving = torch.from_numpy(~sys_.body.frozen)[None, :, None].float()
+    qp = QP(pos=qp0.pos + torch.from_numpy(0.05 * rs.randn(B, n, 3).astype(np.float32)),
+            rot=qp0.rot.expand(B, n, 4).contiguous(),
+            vel=moving * torch.from_numpy(0.2 * rs.randn(B, n, 3).astype(np.float32)),
+            ang=moving * torch.from_numpy(0.2 * rs.randn(B, n, 3).astype(np.float32)))
+    act = torch.from_numpy(rs.uniform(-1, 1, (B, sys_.action_size)).astype(np.float32))
+    assert_close(host_step(host_lib, sys_, qp, act), sys_.step_generic(qp, act))
+
+
+def _port_config(obj):
+    """A JAX-package scene config rebuilt from the port's config classes."""
+    if dataclasses.is_dataclass(obj):
+        return getattr(tc, type(obj).__name__)(
+            **{f.name: _port_config(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple):
+        return tuple(_port_config(x) for x in obj)
+    return obj
+
+
+def test_step_tables_reject_uncovered_features():
+    """AntGather's scene (27 bodies) exceeds the kernel's per-thread arrays."""
+    sys_ = TSystem(_port_config(JAntGather()._cfg), device="cpu")
+    assert sys_.num_bodies == 27
+    with pytest.raises(ValueError, match="MAX_BODIES"):
         step_tables.build(sys_)

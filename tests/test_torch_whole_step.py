@@ -54,10 +54,23 @@ def test_cost_of_ant_tag_is_operation_bound():
     sys_ = AntTagEnv(device="cpu").sys
     cost = whole_step.cost(sys_, 4096)
     # state + act in, state + six Info arrays out, float32, plus the tables
-    assert cost["bytes"] == 4 * 4096 * (12 * 13 + 8 + 12 * 31) + 4 * 1556
+    assert cost["bytes"] == 4 * 4096 * (12 * 13 + 8 + 12 * 31) + 4 * 1797
     assert cost["flops"] > 1e9
     ms, by = whole_step.bound_ms(sys_, 4096)
     assert by == "operations" and 0.01 < ms < 0.03
+    assert whole_step.cost(sys_, 8)["flops"] * 512 == cost["flops"]
+
+
+@pytest.mark.parametrize("name", ["humanoid", "grasp"])
+def test_cost_of_stock_systems(name):
+    """Every System the kernel covers gets a bound; which of the two holds
+    follows from its rows (humanoid's 17 dofs and 20 ground rows, grasp's 9
+    two-body capsule rows over 16 substeps are both operation-bound)."""
+    sys_ = create(name, device="cpu").sys
+    cost = whole_step.cost(sys_, 4096)
+    assert cost["flops"] > 0 and cost["bytes"] > 0
+    ms, by = whole_step.bound_ms(sys_, 4096)
+    assert ms > 0 and by == "operations"
     assert whole_step.cost(sys_, 8)["flops"] * 512 == cost["flops"]
 
 
@@ -94,12 +107,15 @@ def test_kernel_checks_its_inputs_on_card(cuda):
 
 @pytest.mark.cuda
 def test_uncovered_system_raises_on_card(cuda):
-    cfg = c.Config(bodies=(c.Body(name="cart"),),
-                   thrusters=(c.Thruster(name="t", body="cart", strength=1.0),))
+    """More bodies than the kernel holds: System.step raises on CUDA tensors
+    and never falls back to the plain step."""
+    cfg = c.Config(bodies=tuple(c.Body(name=f"b{i}") for i in range(17)))
     sys_ = System(cfg, device=cuda)
     qp = sys_.default_qp()
-    with pytest.raises(ValueError, match="thrusters"):
-        sys_.step(qp, torch.zeros(1, 1, device=cuda))
+    before = whole_step.launches
+    with pytest.raises(ValueError, match="MAX_BODIES"):
+        sys_.step(qp, torch.zeros(1, 0, device=cuda))
+    assert whole_step.launches == before
 
 
 @pytest.mark.cuda
