@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
-Drives `pobrax_tpu_torch`'s main paths — AntTag, and the masked stock envs
-Humanoid and Grasp, each at 4096 batched envs with the cached on-device
-randomised autoreset, every control step one launch of the hand-written
-whole-step CUDA kernel — and checks them. Imports no jax and nothing of
-`pobrax_tpu`; the fixture is read with numpy. Phases:
+Drives `pobrax_tpu_torch`'s main paths — the PO ant tasks AntTag,
+AntHeavenHell, AntGather and AntMaze, and the masked stock envs Humanoid and
+Grasp, each at 4096 batched envs with the cached on-device randomised
+autoreset, every control step one launch of the hand-written whole-step CUDA
+kernel — and checks them. Imports no jax and nothing of `pobrax_tpu`; the
+fixtures are read with numpy. Phases:
   1. card: name and power limit (nvidia-smi) and torch's device name;
   2. build: compile csrc/whole_step.cu with nvcc, print seconds and ptxas
      registers / spills;
@@ -16,19 +17,30 @@ whole-step CUDA kernel — and checks them. Imports no jax and nothing of
      reacherangle, inverted_double_pendulum) after a few plain steps from
      reset, with grasp's Object placed against a finger in 256 envs
      (two-body capsule-capsule rows live); prints how many envs have a live
-     row of each kind;
-  4. fixture replay through the kernel: tests/fixtures/ref_ant_tag_s7.npz at
-     batch 1, its 100 recorded actions;
+     row of each kind. Then the PO ant Systems: HeavenHell and the maze after
+     20 plain steps, with 256 ants pushed against a T-maze or maze wall (the
+     capsule-box rows must be live); AntGather after 50 plain steps, whose 16
+     pass-through apples and bombs must come out bit-equal to their input
+     with zero Info; and AntTag with `info="contact"`, whose joint and
+     actuator Info must be exactly 0 and whose state and contact Info must be
+     bit-equal to the "full" launch's;
+  4. fixture replay through the kernel at batch 1, the recorded actions of
+     po-brax's tests/fixtures/ref_ant_tag_s7.npz, ref_ant_heavenhell_s7.npz
+     and ref_ant_gather_s7.npz;
   5. main paths: `create("ant_tag", batch_size=4096, episode_length=1000,
      randomized_autoreset=True, autoreset_mode=...)` for "cached" and
      "naive"; then `MaskedObservationWrapper(create(name, ..., "cached"),
      env_name=name, hidden=("VELOCITY",))` (`bench.py`'s masked_<name>) for
      humanoid and grasp, 400 steps each, and for fetch, ur5e, reacherangle
-     and inverted_double_pendulum, 100 steps each. Each runs 10 warm-up steps
-     then the timed steps of on-device random actions, with the kernel's
-     launch counter set to 0 just before the timed steps and read just after;
-  6. times: per System, the kernel's and the plain version's time per
-     control step at 4096 envs, and the bound.
+     and inverted_double_pendulum, 100 steps each; `ant_heavenhell`,
+     `ant_gather` and `ant_maze` "cached", 400 steps each, `ant_gather`
+     "naive", 100 steps (a batched permutation reset every step), and
+     `ant_tag` "cached" with `info="contact"`, 100 steps. Each runs 10
+     warm-up steps then the timed steps of on-device random actions, with the
+     kernel's launch counter set to 0 just before the timed steps and read
+     just after; AntGather prints the apples and bombs caught;
+  6. times: per System (and AntTag's contact-only variant), the kernel's and
+     the plain version's time per control step at 4096 envs, and the bound.
 Then one JSON line with an entry per System, the card's name and power
 limit, and the last line `{"ok": true, "device": {...}}`. Any failed phase
 exits non-zero before that line is printed. Without a CUDA device it exits 1
@@ -48,11 +60,14 @@ import torch
 
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
+from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.masks import VELOCITY
-from pobrax_tpu_torch.physics import whole_step
+from pobrax_tpu_torch.physics import step_tables, whole_step
+from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "tests", "fixtures", "ref_ant_tag_s7.npz")
+FIXTURES = [os.path.join(ROOT, "tests", "fixtures", f"ref_{name}_s7.npz")
+            for name in ("ant_tag", "ant_heavenhell", "ant_gather")]
 B = 4096
 MAIN_STEPS = 400
 WARMUP_STEPS = 10  # first calls (allocator, table upload) before the timed window
@@ -75,6 +90,14 @@ FINGER_ENVS = 256  # grasp envs whose Object is placed against finger f0
 MASKED_MAIN = ("humanoid", "grasp")  # the masked main paths, MAIN_STEPS each
 MASKED_OTHER, OTHER_STEPS = ("fetch", "ur5e", "reacherangle", "inverted_double_pendulum"), 100
 ROW_KINDS = ("point_plane", "sphere_sphere", "capsule_capsule", "capsule_box")
+PO_MAIN = ("ant_heavenhell", "ant_gather", "ant_maze")  # cached, MAIN_STEPS each
+# PO Systems against the plain step: plain steps from reset, then the torso
+# coordinate (axis, value) of the first WALL_ENVS ants, 0.35 m short of a
+# wall's inner face (HeavenHell's T-maze stem wall at x = 2.0, the maze's
+# corridor wall at y = 1.75); AntGather's ants are not moved
+PO_WARM_STEPS = {"ant_heavenhell": 20, "ant_maze": 20, "ant_gather": 50}
+PO_WALLS = {"ant_heavenhell": (0, 1.65), "ant_maze": (1, 1.4)}
+CONTACT = "ant_tag,info=contact"  # AntTag's System with contact Info only
 
 
 def fail(msg: str) -> None:
@@ -112,6 +135,14 @@ def phase_build() -> None:
             print(f"[build] ptxas: {line.strip()}", flush=True)
 
 
+def plain_steps(sys_, qp, steps: int, g):
+    """`steps` plain steps of random actions drawn from generator `g`."""
+    for _ in range(steps):
+        qp, _ = sys_.step_generic(qp, torch.rand(B, sys_.action_size, generator=g,
+                                                 device=qp.pos.device) * 2 - 1)
+    return qp
+
+
 def compare(tag: str, sys_, qp, act, note: str):
     """One control step through the kernel and through the plain step from
     `qp`; fails unless MIN_AGREE of the envs agree and all is finite.
@@ -142,21 +173,78 @@ def phase_kernel_vs_plain(dev):
     sys_ = env.sys
     qp = env.reset(jr.PRNGKey(0, dev)).qp
     g = torch.Generator(device=dev).manual_seed(1)
-    for _ in range(WARM_PLAIN_STEPS):
-        act = torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1
-        qp, _ = sys_.step_generic(qp, act)
+    qp = plain_steps(sys_, qp, WARM_PLAIN_STEPS, g)
     # random ants rarely reach the arena wall: push the first WALL_ENVS
     # against the +x wall so the capsule-box rows are exercised too
-    core = env.unwrapped
-    pos = qp.pos.clone()
-    torso_x = pos[:WALL_ENVS, core.torso_idx:core.torso_idx + 1, 0]
-    pos[:WALL_ENVS, core.ant_slice, 0] += WALL_TORSO_X - torso_x
-    qp = qp.replace(pos=pos)
+    qp = push_ants(env.unwrapped, qp, 0, WALL_TORSO_X)
     walled = int((sys_.contacts._capsule_box(qp)[4] > 0).any(-1).sum())
     act = torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1
     max_err = compare("ant_tag", sys_, qp, act, f", {walled} against a wall")
     if walled == 0:
         fail("no env touched a wall: the capsule-box rows went unchecked")
+    return sys_, qp, act, max_err
+
+
+def push_ants(core, qp, axis: int, value: float):
+    """`qp` with the ant's 9 bodies in the first WALL_ENVS envs shifted along
+    `axis` so that the torso's coordinate is `value`."""
+    ant = [core.sys.body.index[n] for n in ANT_BODY_NAMES]
+    pos = qp.pos.clone()
+    shift = value - pos[:WALL_ENVS, core.torso_idx, axis]
+    pos[:WALL_ENVS, ant[0]:ant[-1] + 1, axis] += shift[:, None]
+    return qp.replace(pos=pos)
+
+
+def phase_po_kernel_vs_plain(dev, name: str):
+    """Kernel against plain on a PO ant System after PO_WARM_STEPS plain steps
+    from a reset; ants pushed against a wall (PO_WALLS), or, for AntGather, its
+    pass-through bodies checked bit-equal with zero Info."""
+    env = create(name, episode_length=None, auto_reset=False, batch_size=B, device=dev)
+    sys_ = env.sys
+    qp = env.reset(jr.PRNGKey(4, dev)).qp
+    g = torch.Generator(device=dev).manual_seed(2)
+    qp = plain_steps(sys_, qp, PO_WARM_STEPS[name], g)
+    if name in PO_WALLS:
+        qp = push_ants(env.unwrapped, qp, *PO_WALLS[name])
+    live = live_rows(sys_, qp)
+    act = torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1
+    passes = step_tables.build(sys_)["pass_through"]
+    note = (f"; {len(passes)} pass-through bodies; envs with a live row: "
+            + ", ".join(f"{k} {v}" for k, v in live.items()))
+    max_err = compare(name, sys_, qp, act, note)
+    if name in PO_WALLS and live.get("capsule_box", 0) == 0:
+        fail(f"{name}: no env touched a wall: the capsule-box rows went unchecked")
+    if name == "ant_gather":
+        q, i = whole_step.launch(sys_, qp, act)
+        same = all(torch.equal(getattr(q, f)[:, passes], getattr(qp, f)[:, passes])
+                   for f in ("pos", "rot", "vel", "ang"))
+        zero = not any(bool(t[:, passes].any()) for part in (i.contact, i.joint, i.actuator)
+                       for t in (part.vel, part.ang))
+        print(f"[kernel-vs-plain:{name}] {len(passes)} pass-through bodies bit-equal to their "
+              f"input: {same}; their Info all zero: {zero}", flush=True)
+        if len(passes) != 16 or not same or not zero:
+            fail("ant_gather's pass-through bodies were not passed through")
+    return sys_, qp, act, max_err
+
+
+def phase_contact_info(dev, qp, act):
+    """AntTag's System with contact Info only, against the plain step and,
+    bit for bit, against the "full" System's launch on the same inputs."""
+    full = AntTagEnv(device=dev).sys
+    sys_ = AntTagEnv(device=dev, info="contact").sys
+    max_err = compare(CONTACT, sys_, qp, act, "")
+    (qf, i_f), (qc, ic) = whole_step.launch(full, qp, act), whole_step.launch(sys_, qp, act)
+    torch.cuda.synchronize()
+    same = (all(torch.equal(getattr(qf, f), getattr(qc, f)) for f in ("pos", "rot", "vel", "ang"))
+            and torch.equal(i_f.contact.vel, ic.contact.vel)
+            and torch.equal(i_f.contact.ang, ic.contact.ang))
+    zero = not any(bool(t.any()) for t in (ic.joint.vel, ic.joint.ang, ic.actuator.vel,
+                                            ic.actuator.ang))
+    print(f"[kernel-vs-plain:{CONTACT}] state and contact Info bit-equal to the full launch: "
+          f"{same}; joint and actuator Info exactly 0: {zero} (full launch's joint Info "
+          f"nonzero: {bool(i_f.joint.vel.any())})", flush=True)
+    if not same or not zero:
+        fail("the contact-only Info variant changed the state or kept joint / actuator Info")
     return sys_, qp, act, max_err
 
 
@@ -178,8 +266,7 @@ def phase_stock_kernel_vs_plain(dev, name: str):
     sys_ = env.sys
     qp = env.reset(jr.PRNGKey(3, dev)).qp
     g = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(STOCK_WARM_STEPS[name]):
-        qp, _ = sys_.step_generic(qp, torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1)
+    qp = plain_steps(sys_, qp, STOCK_WARM_STEPS[name], g)
     if name == "grasp":
         dist, obj = sys_.body.index["f0_dist"], sys_.body.index["Object"]
         pos = qp.pos.clone()
@@ -196,11 +283,12 @@ def phase_stock_kernel_vs_plain(dev, name: str):
     return sys_, qp, act, max_err
 
 
-def phase_fixture(dev) -> None:
-    fx = np.load(FIXTURE)
+def phase_fixture(dev, path: str) -> None:
+    fx = np.load(path)
     meta = json.loads(str(fx["meta"]))
     steps, seed = int(meta["steps"]), int(meta["seed"])
-    env = create("ant_tag", episode_length=steps + 1, auto_reset=False, batch_size=1, device=dev)
+    env = create(meta["env"], episode_length=steps + 1, auto_reset=False, batch_size=1,
+                 device=dev)
     s = env.reset(jr.PRNGKey(seed, dev)[None])
     err0 = float(np.abs(s.obs[0].cpu().numpy() - fx["reset_obs"]).max())
     launched = whole_step.launches
@@ -213,7 +301,7 @@ def phase_fixture(dev) -> None:
     done = torch.stack(done).cpu().numpy()
     err = np.abs(obs - fx["obs"]).max(axis=1)
     same_done = bool((done == fx["done"]).all())
-    print(f"[fixture] {os.path.basename(FIXTURE)} seed {seed}: reset obs max |err| {err0:.3e}; "
+    print(f"[fixture] {os.path.basename(path)} seed {seed}: reset obs max |err| {err0:.3e}; "
           f"obs max |err| steps 1-{STEPS_GATED} {err[:STEPS_GATED].max():.3e}, "
           f"all {steps} {err.max():.3e}; done equal: {same_done}; kernel launches "
           f"{whole_step.launches - launched}", flush=True)
@@ -224,16 +312,17 @@ def phase_fixture(dev) -> None:
 
 
 def phase_main(dev, name: str, mode: str, card: str, steps: int = MAIN_STEPS,
-               masked: bool = False) -> int:
+               masked: bool = False, info: str = "full") -> int:
     env = create(name, batch_size=B, episode_length=1000, randomized_autoreset=True,
-                 autoreset_mode=mode, device=dev)
+                 autoreset_mode=mode, device=dev, info=info)
     if masked:
         env = MaskedObservationWrapper(env, env_name=name, hidden=("VELOCITY",))
-    tag = f"{'masked_' if masked else ''}{name}:{mode}"
+    tag = f"{'masked_' if masked else ''}{name}:{mode}{'' if info == 'full' else ',info=' + info}"
     s = env.reset(jr.PRNGKey(0, dev))
     g = torch.Generator(device=dev).manual_seed(0)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     dones = torch.zeros((), device=dev)
+    caught = {k: torch.zeros((), device=dev) for k in ("apples", "bombs") if k in s.metrics}
 
     def run(n):
         nonlocal s, finite, dones
@@ -242,11 +331,15 @@ def phase_main(dev, name: str, mode: str, card: str, steps: int = MAIN_STEPS,
             s = env.step(s, action)
             finite &= torch.isfinite(s.obs).all() & torch.isfinite(s.reward).all()
             dones += s.done.sum()
+            for k, v in caught.items():
+                v += s.metrics[k].sum()
 
     run(WARMUP_STEPS)
     torch.cuda.synchronize()
     whole_step.launches = 0
     dones.zero_()
+    for v in caught.values():
+        v.zero_()
     t0 = time.perf_counter()
     run(steps)
     torch.cuda.synchronize()
@@ -255,7 +348,8 @@ def phase_main(dev, name: str, mode: str, card: str, steps: int = MAIN_STEPS,
     rate = B * steps / elapsed
     print(f"[main:{tag}] {steps} steps x {B} envs in {elapsed:.3f} s = {rate:.1f} "
           f"env-steps/s on {card}; kernel launches {launches}; episodes ended "
-          f"{int(dones)}; obs/reward finite: {bool(finite)}", flush=True)
+          f"{int(dones)}; obs/reward finite: {bool(finite)}"
+          + "".join(f"; {k} caught {int(v)}" for k, v in caught.items()), flush=True)
     if launches != steps:
         fail(f"main path ({tag}) launched the kernel {launches} times for {steps} steps")
     if not bool(finite):
@@ -280,13 +374,22 @@ def main() -> None:
     compared = {"ant_tag": phase_kernel_vs_plain(dev)}
     for name in STOCK_WARM_STEPS:
         compared[name] = phase_stock_kernel_vs_plain(dev, name)
-    phase_fixture(dev)
+    for name in PO_MAIN:
+        compared[name] = phase_po_kernel_vs_plain(dev, name)
+    compared[CONTACT] = phase_contact_info(dev, *compared["ant_tag"][1:3])
+    for path in FIXTURES:
+        phase_fixture(dev, path)
     launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
     phase_main(dev, "ant_tag", "naive", card)
     for name in MASKED_MAIN:
         launches[name] = phase_main(dev, name, "cached", card, masked=True)
     for name in MASKED_OTHER:
         launches[name] = phase_main(dev, name, "cached", card, steps=OTHER_STEPS, masked=True)
+    for name in PO_MAIN:
+        launches[name] = phase_main(dev, name, "cached", card)
+    launches["ant_gather"] += phase_main(dev, "ant_gather", "naive", card, steps=OTHER_STEPS)
+    launches[CONTACT] = phase_main(dev, "ant_tag", "cached", card, steps=OTHER_STEPS,
+                                   info="contact")
 
     entries = []
     for name, (sys_, qp, act, max_err) in compared.items():

@@ -12,7 +12,10 @@
 //      renormalisation (:928-949)
 //   -> contact impulses on the updated pose, phase by phase: point-plane,
 //      sphere-sphere, capsule-capsule, capsule-box (:475-842)
-//   -> the contact / joint / actuator Info sums (:960-980).
+//   -> the contact / joint / actuator Info sums (:960-980), or the contact
+//      sums alone (the contact-only Info variant, fused.py's
+//      POBRAX_INFO=contact; the kernel then leaves the joint and actuator
+//      Info arrays unwritten and the wrapper returns zeros for them).
 //
 // What bounds it on an H100: operations, not bytes. Per env and substep the
 // step does roughly 30k fp32 operations for AntTag (12 bodies, 8 hinges,
@@ -31,6 +34,12 @@
 //   * the System enters as data — joint, thruster and contact rows are loops
 //     over constant tables (physics/step_tables.py), so compile time does not
 //     grow with the number of rows and one build serves every System;
+//   * only the bodies the step touches (that move, or that a joint,
+//     thruster or row names) take a slot in the per-thread arrays; the
+//     tables index slots, and each slot names its body in the state arrays.
+//     Every other body — AntGather's 16 frozen apples and bombs — is copied
+//     from input to output with zero Info, so kMaxBodies bounds the touched
+//     bodies (11 of AntGather's 27) and no thread's stack grows with them;
 //   * frozen bodies are folded statically: their rotation comes from the
 //     table, their velocities are zero, and the plane and box frames of rows
 //     against them are precomputed per row; their rows take the one-body
@@ -60,17 +69,21 @@
 
 namespace ws {
 
-constexpr int kMaxBodies = 16;  // physics/step_tables.py::MAX_BODIES
+constexpr int kMaxBodies = 16;  // physics/step_tables.py::MAX_BODIES: touched bodies
 
 // ---- constant tables: 32-bit words, laid out by physics/step_tables.py ----
 
 struct Header {
-  int n_bodies, n_act, substeps, n_joints, n_thr, n_pp, n_ss, n_cc, n_cb;
+  int n_bodies;      // all bodies: the stride of the state arrays
+  int n_slots;       // touched bodies, the Body records
+  int info_contact;  // 1: contact Info only (joint / actuator arrays not written)
+  int n_act, substeps, n_joints, n_thr, n_pp, n_ss, n_cc, n_cb;
   float h, half_h, vel_damp, ang_damp, gravity[3], baumgarte, one_plus_e, friction;
   float servo_gain;  // physics/joints.py::ANGLE_SERVO_GAIN
 };
 
-struct Body {
+struct Body {  // one per slot
+  int index;  // the body's index in the state arrays
   float inv_mass, inv_inertia[3], active_pos[3], active_rot[3];
   int frozen, rot_free;
   float default_rot[4];
@@ -112,6 +125,10 @@ struct CapsuleBox {
       inertia_a[3];
 };
 
+struct PassThrough {  // a body the step never touches
+  int body;
+};
+
 // the size of each struct in 32-bit words, for the loader's layout check
 WS_FN int layout_words(int* out) {
   out[0] = sizeof(Header) / 4;
@@ -122,7 +139,8 @@ WS_FN int layout_words(int* out) {
   out[5] = sizeof(SphereSphere) / 4;
   out[6] = sizeof(CapsuleCapsule) / 4;
   out[7] = sizeof(CapsuleBox) / 4;
-  return 8;
+  out[8] = sizeof(PassThrough) / 4;
+  return 9;
 }
 
 // ---- small vector algebra, written as fused.py writes it ------------------
@@ -228,7 +246,7 @@ WS_FN void resolve_a(const Header& H, V3 cpos, V3 pa, V3 va, V3 aa, V3 n, float 
   *tq_out = cross(r_a, j);
 }
 
-// Per-env state, Info sums and per-substep force sums.
+// Per-env state and Info sums, indexed by slot.
 struct EnvState {
   V3 pos[kMaxBodies], vel[kMaxBodies], ang[kMaxBodies];
   Q4 rot[kMaxBodies];
@@ -306,25 +324,27 @@ struct Tables {
   const SphereSphere* sss;
   const CapsuleCapsule* ccs;
   const CapsuleBox* cbs;
+  const PassThrough* passes;
 };
 
 WS_FN Tables tables_of(const void* buf) {
   Tables t;
   t.H = static_cast<const Header*>(buf);
   t.bodies = reinterpret_cast<const Body*>(t.H + 1);
-  t.joints = reinterpret_cast<const Joint*>(t.bodies + t.H->n_bodies);
+  t.joints = reinterpret_cast<const Joint*>(t.bodies + t.H->n_slots);
   t.thrusters = reinterpret_cast<const Thruster*>(t.joints + t.H->n_joints);
   t.pps = reinterpret_cast<const PointPlane*>(t.thrusters + t.H->n_thr);
   t.sss = reinterpret_cast<const SphereSphere*>(t.pps + t.H->n_pp);
   t.ccs = reinterpret_cast<const CapsuleCapsule*>(t.sss + t.H->n_ss);
   t.cbs = reinterpret_cast<const CapsuleBox*>(t.ccs + t.H->n_cc);
+  t.passes = reinterpret_cast<const PassThrough*>(t.cbs + t.H->n_cb);
   return t;
 }
 
 WS_FN void substep(const Tables& T, const float* act, EnvState& s) {
   const Header& H = *T.H;
   const Body* bodies = T.bodies;
-  const int n = H.n_bodies;
+  const int n = H.n_slots;
   V3 fvel[kMaxBodies], fang[kMaxBodies], avel[kMaxBodies], aang[kMaxBodies];
   for (int i = 0; i < n; ++i) {
     fvel[i] = fang[i] = avel[i] = aang[i] = V3{0.0f, 0.0f, 0.0f};
@@ -595,6 +615,7 @@ WS_UNROLL
     }
     add_to(s.info[0], i, dvel[i]);
     add_to(s.info[1], i, dang[i]);
+    if (H.info_contact) continue;  // uniform over the warp: from the tables
     add_to(s.info[2], i, fvel[i]);
     add_to(s.info[3], i, fang[i]);
     add_to(s.info[4], i, avel[i]);
@@ -604,22 +625,26 @@ WS_UNROLL
 
 // The whole control step of env `b`. Inputs are batch-first: pos/vel/ang
 // (B, n, 3), rot (B, n, 4), act (B, A); outputs the same, plus six Info
-// arrays (B, n, 3): contact vel/ang, joint vel/ang, actuator vel/ang.
+// arrays (B, n, 3): contact vel/ang, joint vel/ang, actuator vel/ang. With
+// info_contact set, the joint and actuator arrays (info_out[2..5]) are not
+// written and may be null.
 WS_FN void step_env(const void* tables, int b,
                     const float* pos_in, const float* rot_in, const float* vel_in,
                     const float* ang_in, const float* act_in,
                     float* pos_out, float* rot_out, float* vel_out, float* ang_out,
                     float* const* info_out) {
   const Tables T = tables_of(tables);
-  const int n = T.H->n_bodies;
+  const int n = T.H->n_bodies, m = T.H->n_slots;
+  const int n_info = T.H->info_contact ? 2 : 6;
   const long long o3 = (long long)b * n * 3, o4 = (long long)b * n * 4;
 
   EnvState s;
-  for (int i = 0; i < n; ++i) {
-    s.pos[i] = v3(pos_in + o3 + 3 * i);
-    s.vel[i] = v3(vel_in + o3 + 3 * i);
-    s.ang[i] = v3(ang_in + o3 + 3 * i);
-    s.rot[i] = q4(rot_in + o4 + 4 * i);
+  for (int i = 0; i < m; ++i) {
+    const int k = T.bodies[i].index;
+    s.pos[i] = v3(pos_in + o3 + 3 * k);
+    s.vel[i] = v3(vel_in + o3 + 3 * k);
+    s.ang[i] = v3(ang_in + o3 + 3 * k);
+    s.rot[i] = q4(rot_in + o4 + 4 * k);
     for (int f = 0; f < 6; ++f) s.info[f][i] = V3{0.0f, 0.0f, 0.0f};
   }
   const float* act = act_in + (long long)b * T.H->n_act;
@@ -628,19 +653,32 @@ WS_FN void step_env(const void* tables, int b,
     substep(T, act, s);
   }
 
-  for (int i = 0; i < n; ++i) {
-    float* p = pos_out + o3 + 3 * i;
-    float* v = vel_out + o3 + 3 * i;
-    float* w = ang_out + o3 + 3 * i;
-    float* r = rot_out + o4 + 4 * i;
+  for (int i = 0; i < m; ++i) {
+    const int k = T.bodies[i].index;
+    float* p = pos_out + o3 + 3 * k;
+    float* v = vel_out + o3 + 3 * k;
+    float* w = ang_out + o3 + 3 * k;
+    float* r = rot_out + o4 + 4 * k;
     p[0] = s.pos[i].x; p[1] = s.pos[i].y; p[2] = s.pos[i].z;
     v[0] = s.vel[i].x; v[1] = s.vel[i].y; v[2] = s.vel[i].z;
     w[0] = s.ang[i].x; w[1] = s.ang[i].y; w[2] = s.ang[i].z;
     r[0] = s.rot[i].w; r[1] = s.rot[i].x; r[2] = s.rot[i].y; r[3] = s.rot[i].z;
-    for (int f = 0; f < 6; ++f) {
-      float* o = info_out[f] + o3 + 3 * i;
+    for (int f = 0; f < n_info; ++f) {
+      float* o = info_out[f] + o3 + 3 * k;
       o[0] = s.info[f][i].x; o[1] = s.info[f][i].y; o[2] = s.info[f][i].z;
     }
+  }
+
+  // bodies the step never touches: state through, zero Info
+  for (int i = 0; i < n - m; ++i) {
+    const int k = T.passes[i].body;
+    for (int c = 0; c < 3; ++c) {
+      pos_out[o3 + 3 * k + c] = pos_in[o3 + 3 * k + c];
+      vel_out[o3 + 3 * k + c] = vel_in[o3 + 3 * k + c];
+      ang_out[o3 + 3 * k + c] = ang_in[o3 + 3 * k + c];
+      for (int f = 0; f < n_info; ++f) info_out[f][o3 + 3 * k + c] = 0.0f;
+    }
+    for (int c = 0; c < 4; ++c) rot_out[o4 + 4 * k + c] = rot_in[o4 + 4 * k + c];
   }
 }
 

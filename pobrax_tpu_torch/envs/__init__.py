@@ -1,10 +1,11 @@
 """Env registry and factory; the port of `pobrax_tpu/envs/__init__.py`.
 
 `create(env_name, ..., device=None)` assembles the wrapper stack in the JAX
-factory's order: ActionRepeat -> Episode -> Vmap -> autoreset.
+factory's order: ActionRepeat -> Episode -> Vmap -> autoreset -> Eval.
 `MaskedObservationWrapper(env, env_name=..., hidden=...)` on top makes the
-PO variant of a stock env, as `bench.py`'s `masked_<name>` does. The ant
-family other than `ant_tag`, the planar envs, acrobot and fast are queued in
+PO variant of a stock env, as `bench.py`'s `masked_<name>` does. The PO ant
+tasks (`ant_tag`, `ant_heavenhell`, `ant_gather`, `ant_maze`) and the stock
+envs below are ported; `ant`, the planar envs, acrobot and fast are queued in
 ROADMAP.md.
 """
 
@@ -13,6 +14,9 @@ from __future__ import annotations
 from typing import Optional
 
 from pobrax_tpu_torch.envs import wrappers
+from pobrax_tpu_torch.envs.ant_gather import AntGatherEnv
+from pobrax_tpu_torch.envs.ant_heavenhell import AntHeavenHellEnv
+from pobrax_tpu_torch.envs.ant_maze import AntMazeEnv
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.base import Env, State, Wrapper
 from pobrax_tpu_torch.envs.fetch import Fetch
@@ -25,6 +29,9 @@ from pobrax_tpu_torch.envs.ur5e import Ur5e
 
 _envs = {
     "ant_tag": AntTagEnv,
+    "ant_heavenhell": AntHeavenHellEnv,
+    "ant_gather": AntGatherEnv,
+    "ant_maze": AntMazeEnv,
     "fetch": Fetch,
     "grasp": Grasp,
     "humanoid": Humanoid,
@@ -43,6 +50,7 @@ def create(
     action_repeat: Optional[int] = 1,
     auto_reset: bool = True,
     batch_size: Optional[int] = None,
+    eval_metrics: bool = False,
     randomized_autoreset: bool = False,
     autoreset_mode: str = "naive",
     device=None,
@@ -54,8 +62,9 @@ def create(
     no GPU and no device this raises. `randomized_autoreset=True` swaps the
     cached AutoResetWrapper for a randomised one, chosen by `autoreset_mode`:
     'naive' (resample every step — reference parity) or 'cached' (cached
-    fresh states refreshed every 200 steps). `substeps=N` retunes the
-    integrator."""
+    fresh states refreshed every 200 steps). `eval_metrics=True` adds the
+    EvalWrapper on top. `substeps=N` retunes the integrator; `info="contact"`
+    builds the System with contact Info only."""
     if env_name not in _envs:
         raise ValueError(
             f"env {env_name!r} is not ported to pobrax_tpu_torch yet (available: "
@@ -83,9 +92,12 @@ def create(
             env = wrappers.randomized_autoreset(env, autoreset_mode)
         else:
             env = wrappers.AutoResetWrapper(env)
+    if eval_metrics:
+        env = wrappers.EvalWrapper(env)
     return env
 
 
-__all__ = ["AntTagEnv", "Env", "Fetch", "Grasp", "Humanoid", "HumanoidStandup",
+__all__ = ["AntGatherEnv", "AntHeavenHellEnv", "AntMazeEnv", "AntTagEnv", "Env", "Fetch",
+           "Grasp", "Humanoid", "HumanoidStandup",
            "InvertedDoublePendulum", "InvertedPendulum", "MaskedObservationWrapper",
            "Reacher", "ReacherAngle", "State", "Ur5e", "Wrapper", "create", "wrappers"]

@@ -52,6 +52,7 @@ class AntTagEnv(Env):
         cage_xy: play-area half-extent
         dying_cost: reward on torso-height death
         device: "cuda" (default) or "cpu"
+        info: "full" (default) or "contact" (contact Info only)
     """
 
     def __init__(
@@ -63,13 +64,14 @@ class AntTagEnv(Env):
         cage_xy: Sequence[float] = (4.5, 4.5),
         dying_cost: float = -1.0,
         device=None,
+        info: str = "full",
     ):
         self.tag_radius = tag_radius
         self.visible_radius = visible_radius
         self.target_step = target_step
         self.min_spawn_distance = min_spawn_distance
         self.dying_cost = dying_cost
-        super().__init__(extend_ant_cfg(cage_max_xy=tuple(cage_xy), offset=1.0), device)
+        super().__init__(extend_ant_cfg(cage_max_xy=tuple(cage_xy), offset=1.0), device, info)
         self.cage_xy = torch.tensor(tuple(cage_xy), dtype=torch.float32, device=self.device)
         self.target_idx = self.sys.body.index["Target"]
         self.torso_idx = self.sys.body.index["$ Torso"]

@@ -36,12 +36,14 @@ class State:
 
 
 class Env(abc.ABC):
-    """A physics-backed environment; subclasses build a Config in __init__."""
+    """A physics-backed environment; subclasses build a Config in __init__.
+    `info="contact"` builds the System with contact Info only (see
+    `physics/system.py`); every env's observation reads contact Info alone."""
 
-    def __init__(self, cfg: pcfg.Config, device=None):
+    def __init__(self, cfg: pcfg.Config, device=None, info: str = "full"):
         self._cfg = cfg
         self.device = _device.resolve(device)
-        self.sys = System(cfg, self.device)
+        self.sys = System(cfg, self.device, info)
 
     @abc.abstractmethod
     def reset(self, rng: torch.Tensor) -> State:
@@ -55,7 +57,7 @@ class Env(abc.ABC):
         """dt *= k, substeps *= k (ActionRepeatWrapper semantics). Rebuilds
         the System since configs are immutable."""
         self._cfg = self._cfg.scale_time(action_repeat)
-        self.sys = System(self._cfg, self.device)
+        self.sys = System(self._cfg, self.device, self.sys.info_mode)
 
     def retune_substeps(self, substeps: int) -> None:
         """Opt-in integrator retune: same dt, fewer substeps (larger h_sub).
@@ -69,7 +71,7 @@ class Env(abc.ABC):
                 "wrapping (use env.unwrapped.retune_substeps(...) or "
                 "create(..., substeps=N))")
         self._cfg = dataclasses.replace(self._cfg, substeps=substeps)
-        self.sys = System(self._cfg, self.device)
+        self.sys = System(self._cfg, self.device, self.sys.info_mode)
 
     @property
     @abc.abstractmethod

@@ -22,8 +22,8 @@ from pobrax_tpu_torch.physics.state import Info, QP
 
 
 class Fetch(Env):
-    def __init__(self, target_distance: float = 15.0, device=None, **kwargs):
-        super().__init__(quadruped.fetch_config(), device)
+    def __init__(self, target_distance: float = 15.0, device=None, info: str = "full", **kwargs):
+        super().__init__(quadruped.fetch_config(), device, info)
         self.target_distance = target_distance
         self.torso = self.sys.body.index["torso"]
         self.target = self.sys.body.index["Target"]

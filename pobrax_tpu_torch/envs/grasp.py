@@ -24,8 +24,8 @@ from pobrax_tpu_torch.physics.state import Info, QP
 
 
 class Grasp(Env):
-    def __init__(self, device=None, **kwargs):
-        super().__init__(manipulation.grasp_config(), device)
+    def __init__(self, device=None, info: str = "full", **kwargs):
+        super().__init__(manipulation.grasp_config(), device, info)
         self.palm = self.sys.body.index["palm"]
         self.obj = self.sys.body.index["Object"]
         self.target = self.sys.body.index["Target"]

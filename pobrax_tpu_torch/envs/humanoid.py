@@ -32,8 +32,8 @@ class Humanoid(Env):
 
     _config_fn = staticmethod(humanoid_model.humanoid_config)
 
-    def __init__(self, device=None, **kwargs):
-        super().__init__(self._config_fn(), device)
+    def __init__(self, device=None, info: str = "full", **kwargs):
+        super().__init__(self._config_fn(), device, info)
         self.torso = self.sys.body.index["torso"]
         self.n_dyn = len(humanoid_model.BODY_ORDER)
         masses = [b.mass for b in self._cfg.bodies[: self.n_dyn]]

@@ -41,8 +41,8 @@ class InvertedPendulum(_CartPole):
 
     _metric = "survive"
 
-    def __init__(self, device=None, **kwargs):
-        super().__init__(pendulum.inverted_pendulum_config(), device)
+    def __init__(self, device=None, info: str = "full", **kwargs):
+        super().__init__(pendulum.inverted_pendulum_config(), device, info)
         self.cart = self.sys.body.index["cart"]
         self.pole = self.sys.body.index["pole"]
 
@@ -76,8 +76,8 @@ class InvertedDoublePendulum(_CartPole):
 
     _metric = "distance"
 
-    def __init__(self, device=None, **kwargs):
-        super().__init__(pendulum.inverted_double_pendulum_config(), device)
+    def __init__(self, device=None, info: str = "full", **kwargs):
+        super().__init__(pendulum.inverted_double_pendulum_config(), device, info)
         self.cart = self.sys.body.index["cart"]
         self.pole = self.sys.body.index["pole"]
         self.pole2 = self.sys.body.index["pole2"]

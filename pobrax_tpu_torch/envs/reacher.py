@@ -27,8 +27,8 @@ from pobrax_tpu_torch.physics.state import QP
 class Reacher(Env):
     _actuator_kind = "torque"
 
-    def __init__(self, device=None, **kwargs):
-        super().__init__(reacher_model.reacher_config(self._actuator_kind), device)
+    def __init__(self, device=None, info: str = "full", **kwargs):
+        super().__init__(reacher_model.reacher_config(self._actuator_kind), device, info)
         self.body1 = self.sys.body.index["body1"]
         self.target = self.sys.body.index["target"]
         self._tip = torch.tensor([0.06, 0.0, 0.0], device=self.device)
@@ -83,8 +83,8 @@ class ReacherAngle(Reacher):
 
     _actuator_kind = "angle"
 
-    def __init__(self, device=None, **kwargs):
-        super().__init__(device, **kwargs)
+    def __init__(self, device=None, info: str = "full", **kwargs):
+        super().__init__(device, info, **kwargs)
         limits = torch.as_tensor(self.sys.joints[0].limit, device=self.device)  # (J, 1, 2)
         self._servo_lo = torch.clamp(limits[:, 0, 0], min=-math.pi)
         self._servo_hi = torch.clamp(limits[:, 0, 1], max=math.pi)

@@ -22,8 +22,8 @@ from pobrax_tpu_torch.physics.state import Info, QP
 
 
 class Ur5e(Env):
-    def __init__(self, device=None, **kwargs):
-        super().__init__(manipulation.ur5e_config(), device)
+    def __init__(self, device=None, info: str = "full", **kwargs):
+        super().__init__(manipulation.ur5e_config(), device, info)
         self.target = self.sys.body.index["Target"]
         self.wrist = self.sys.body.index["wrist_3"]
         # the 8 bodies whose positions/velocities enter the obs

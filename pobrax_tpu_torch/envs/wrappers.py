@@ -8,17 +8,23 @@ batch of keys. Autoreset semantics match the JAX wrappers:
     step and selects it per env where done.
   * RandomizedAutoResetWrapperCachedOnDevice — selects from cached fresh
     states, re-randomised every `refresh_every` steps.
+  * RandomizedAutoResetWrapperOnTerminal — the JAX wrapper resamples only
+    when some env is done (`lax.cond`); here the reset is computed every
+    step and selected, which gives the same state without a host read.
+  * RandomizedAutoResetWrapperCached — cached fresh states refreshed by a
+    host-side step counter (the reference's variant).
 Every autoreset wrapper records `info["final_obs"]`, the pre-reset
 observation of the step (equal to `obs` where the episode did not end), so
 off-policy learners can bootstrap from the true final state (PARITY.md).
-
-Not ported yet: the on-terminal and host-counter cached variants and
-EvalWrapper (ROADMAP).
+`EvalWrapper` accumulates per-episode metrics on the device in
+`info["eval_metrics"]`, an `EvalMetrics`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
 
@@ -205,3 +211,87 @@ class RandomizedAutoResetWrapperCachedOnDevice(Wrapper):
         state = state.replace(done=torch.zeros_like(state.done))
         state = self.env.step(state, action)
         return _select_reset(state, state.info["first_qp"], state.info["first_obs"])
+
+
+class RandomizedAutoResetWrapperOnTerminal(RandomizedAutoResetWrapperNaive):
+    """Resample where an env is done (reference wrappers.py:55-80). The JAX
+    wrapper resets the whole batch under `lax.cond(done.any(), ...)`, after
+    splitting the keys, and selects the reset only where done; computing the
+    reset every step and selecting gives the same state without reading
+    `done` on the host, which is what `RandomizedAutoResetWrapperNaive`
+    does."""
+
+
+class RandomizedAutoResetWrapperCached(Wrapper):
+    """Select from a cached fresh state, refreshed every
+    `n_steps_between_updates` calls of `step` by a host-side counter
+    (reference wrappers.py:83-123); the counter does not restart on reset."""
+
+    def __init__(self, env: Env, n_steps_between_updates: int = 200):
+        super().__init__(env)
+        self.n_steps_between_updates = n_steps_between_updates
+        self.steps = 0
+
+    def reset(self, rng: torch.Tensor) -> State:
+        state = self.env.reset(rng)
+        info = {**state.info, "first_qp": state.qp, "first_obs": state.obs,
+                "final_obs": state.obs}
+        return state.replace(info=info)
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        self.steps += 1
+        if self.steps % self.n_steps_between_updates == 0:
+            state, rng_use = _split_info_rng(state)
+            fresh = self.env.reset(rng_use)
+            state = state.replace(info={**state.info, "first_qp": fresh.qp,
+                                        "first_obs": fresh.obs})
+        state = _zero_steps_where_done(state)
+        state = state.replace(done=torch.zeros_like(state.done))
+        state = self.env.step(state, action)
+        return _select_reset(state, state.info["first_qp"], state.info["first_obs"])
+
+
+@dataclass
+class EvalMetrics:
+    """On-device accumulators of eval episode statistics: per-env sums of the
+    running episode's metrics, and batch totals over completed episodes."""
+
+    current_episode_metrics: Dict[str, torch.Tensor]     # each (B,)
+    completed_episodes_metrics: Dict[str, torch.Tensor]  # each ()
+    completed_episodes: torch.Tensor                     # ()
+    completed_episodes_steps: torch.Tensor               # ()
+
+    def replace(self, **changes) -> "EvalMetrics":
+        return dataclasses.replace(self, **changes)
+
+
+class EvalWrapper(Wrapper):
+    """Accumulates per-episode metrics and the reward on the device (stock
+    EvalWrapper semantics, JAX wrappers.py:321-358)."""
+
+    def reset(self, rng: torch.Tensor) -> State:
+        state = self.env.reset(rng)
+        metrics = {**state.metrics, "reward": state.reward}
+        zero = torch.zeros((), device=state.reward.device)
+        eval_metrics = EvalMetrics(
+            current_episode_metrics={k: torch.zeros_like(v) for k, v in metrics.items()},
+            completed_episodes_metrics={k: zero.clone() for k in metrics},
+            completed_episodes=zero.clone(),
+            completed_episodes_steps=zero.clone())
+        return state.replace(metrics=metrics, info={**state.info, "eval_metrics": eval_metrics})
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        em = state.info["eval_metrics"]
+        inner = state.replace(info={k: v for k, v in state.info.items() if k != "eval_metrics"})
+        nstate = self.env.step(inner, action)
+        nmetrics = {**nstate.metrics, "reward": nstate.reward}
+        done = nstate.done
+        curr = {k: em.current_episode_metrics[k] + nmetrics[k] for k in em.current_episode_metrics}
+        completed = {k: em.completed_episodes_metrics[k] + (curr[k] * done).sum()
+                     for k in em.completed_episodes_metrics}
+        eval_metrics = EvalMetrics(
+            current_episode_metrics={k: v * (1 - done) for k, v in curr.items()},
+            completed_episodes_metrics=completed,
+            completed_episodes=em.completed_episodes + done.sum(),
+            completed_episodes_steps=em.completed_episodes_steps + torch.ones_like(done).sum())
+        return nstate.replace(metrics=nmetrics, info={**nstate.info, "eval_metrics": eval_metrics})

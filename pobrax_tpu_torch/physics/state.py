@@ -42,6 +42,14 @@ class P(_Replace):
         return cls(vel=torch.zeros(batch, nbody, 3, device=device),
                    ang=torch.zeros(batch, nbody, 3, device=device))
 
+    @classmethod
+    def zero_view(cls, like: torch.Tensor) -> "P":
+        """A zero P shaped as `like` (B, nbody, 3): one zero, expanded, so it
+        holds no bytes and refuses in-place writes (the joint and actuator
+        Info of the contact-only variant)."""
+        zero = torch.zeros((), dtype=like.dtype, device=like.device).expand(like.shape)
+        return cls(vel=zero, ang=zero)
+
 
 @dataclass
 class Info(_Replace):

@@ -12,17 +12,26 @@ tests/test_torch_scene.py holds them equal.
 `pack` lays the tables out as one flat buffer of 32-bit words in the C
 structs of `csrc/whole_step.cuh` (Header, then Body x n, Joint x nj,
 Thruster x nt, PointPlane x npp, SphereSphere x nss, CapsuleCapsule x ncc,
-CapsuleBox x ncb). The kernel loops over these rows at run time, so one build
-of the kernel serves every System it covers.
+CapsuleBox x ncb, PassThrough x (n_bodies - n_slots)). The kernel loops
+over these rows at run time, so one build of the kernel serves every System.
+
+Slots: only the bodies the step touches — those that move on some axis, and
+those a joint, thruster or contact row names — enter the kernel's per-thread
+arrays, in body order. Body records are written per slot, with the body's
+index in the state arrays; every joint, thruster and row index is a slot.
+Every other body (AntGather's 16 apples and bombs) passes through: the
+kernel copies its state from input to output with zero Info, which is exact,
+since the step gives such a body no force, no impulse and no motion.
 
 Coverage: the whole engine — 1-, 2- and 3-dof joints with torque or
 angle-servo actuators, thrusters, per-axis frozen masks, and point-plane,
 sphere-sphere, capsule-capsule and capsule-box rows whether or not their
-second body is frozen. A point-plane or capsule-box row against a frozen body
-folds that body's frame into the row; one against a moving body carries the
-frame in the body's own coordinates and is turned into the world each
-substep. The one limit is `MAX_BODIES` bodies (the kernel's per-thread
-arrays): `build` raises ValueError for more.
+second body is frozen — with full Info or contact Info only. A point-plane or
+capsule-box row against a frozen body folds that body's frame into the row;
+one against a moving body carries the frame in the body's own coordinates
+and is turned into the world each substep. The one limit is `MAX_BODIES`
+touched bodies (the kernel's per-thread arrays): `build` raises ValueError
+for more.
 """
 
 from __future__ import annotations
@@ -33,20 +42,23 @@ import numpy as np
 
 from pobrax_tpu_torch.physics.joints import ANGLE_SERVO_GAIN
 
-# must equal ws::kMaxBodies in csrc/whole_step.cuh (the per-thread arrays)
+# must equal ws::kMaxBodies in csrc/whole_step.cuh (the per-thread arrays);
+# it bounds the touched bodies, not all bodies
 MAX_BODIES = 16
+INFO_MODES = ("full", "contact")
 
 # C struct layouts of csrc/whole_step.cuh, field by field: (name, kind, count)
 # with kind "i" (int32) or "f" (float32). whole_step.py checks the word counts
 # against the compiled library's.
-HEADER = [("n_bodies", "i", 1), ("n_act", "i", 1), ("substeps", "i", 1),
+HEADER = [("n_bodies", "i", 1), ("n_slots", "i", 1), ("info_contact", "i", 1),
+          ("n_act", "i", 1), ("substeps", "i", 1),
           ("n_joints", "i", 1), ("n_thr", "i", 1), ("n_pp", "i", 1), ("n_ss", "i", 1),
           ("n_cc", "i", 1), ("n_cb", "i", 1),
           ("h", "f", 1), ("half_h", "f", 1), ("vel_damp", "f", 1), ("ang_damp", "f", 1),
           ("gravity", "f", 3), ("baumgarte", "f", 1), ("one_plus_e", "f", 1),
           ("friction", "f", 1), ("servo_gain", "f", 1)]
-BODY = [("inv_mass", "f", 1), ("inv_inertia", "f", 3), ("active_pos", "f", 3),
-        ("active_rot", "f", 3), ("frozen", "i", 1), ("rot_free", "i", 1),
+BODY = [("index", "i", 1), ("inv_mass", "f", 1), ("inv_inertia", "f", 3),
+        ("active_pos", "f", 3), ("active_rot", "f", 3), ("frozen", "i", 1), ("rot_free", "i", 1),
         ("default_rot", "f", 4)]
 JOINT = [("parent", "i", 1), ("child", "i", 1), ("dof", "i", 1), ("act_idx", "i", 1),
          ("act_kind", "i", 1), ("off_p", "f", 3), ("off_c", "f", 3), ("q_j", "f", 4),
@@ -65,8 +77,9 @@ CAPSULE_BOX = [("a", "i", 1), ("b", "i", 1), ("cap", "i", 1), ("b_moves", "i", 1
                ("e0", "f", 3), ("e1", "f", 3), ("radius", "f", 1), ("rot", "f", 9),
                ("box_q", "f", 4), ("box_off_w", "f", 3), ("halfsize", "f", 3),
                ("invm_a", "f", 1), ("inertia_a", "f", 3)]
+PASS_THROUGH = [("body", "i", 1)]
 STRUCTS = (HEADER, BODY, JOINT, THRUSTER, POINT_PLANE, SPHERE_SPHERE, CAPSULE_CAPSULE,
-           CAPSULE_BOX)
+           CAPSULE_BOX, PASS_THROUGH)
 
 
 def words(struct) -> int:
@@ -243,14 +256,24 @@ CC_FIELDS = ("a", "e0a", "e1a", "ra", "b", "e0b", "e1b", "rb")
 CB_FIELDS = ("a", "e0", "e1", "radius", "b", "box_pos", "box_quat", "halfsize")
 
 
+def touched_bodies(sys, t: Dict) -> List[int]:
+    """The bodies the step touches, in body order: those that move on some
+    axis and those a joint, thruster or contact row of `t` names."""
+    named = {b for j in t["joints"] for b in (j["parent"], j["child"])}
+    named |= {th["body"] for th in t["thrusters"]}
+    for rows in (t["pp_rows"], t["ss_rows"], t["cc_rows"], t["cb_rows"]):
+        named |= {r[k] for r in rows for k in ("a", "b")}
+    body = sys.body
+    return [i for i in range(sys.num_bodies)
+            if i in named or body.active_pos[i].any() or body.active_rot[i].any()]
+
+
 def build(sys) -> Dict:
-    """Every constant the kernel reads, as host values; raises ValueError for
-    a System with more bodies than the kernel's per-thread arrays hold."""
+    """Every constant the kernel reads, as host values, with body indices (not
+    slots); raises ValueError for a System whose touched bodies exceed the
+    kernel's per-thread arrays."""
     body, ct = sys.body, sys.contacts
     n = sys.num_bodies
-    if n > MAX_BODIES:
-        raise ValueError(f"whole-step kernel: {n} bodies exceed MAX_BODIES={MAX_BODIES} "
-                         f"(the per-thread arrays of csrc/whole_step.cuh)")
     frozen = [bool(f) for f in body.frozen]
     default_rot = [tuple(float(v) for v in sys._default_pose[1][i]) for i in range(n)]
     inv_mass = [float(m) for m in body.inv_mass]
@@ -267,8 +290,9 @@ def build(sys) -> Dict:
                       strength=float(sys._thruster_strength[t]), inv_mass=inv_mass[int(b)])
                  for t, b in enumerate(sys._thruster_body)]
     integ = sys.integrator
-    return dict(
+    t = dict(
         n_bodies=n, n_act=sys.action_size, substeps=integ.substeps,
+        info_contact=sys.info_mode == "contact",
         h=integ.h, vel_damp=integ.vel_damp, ang_damp=integ.ang_damp,
         gravity=tuple(float(g) for g in integ.gravity),
         baumgarte=ct.baumgarte_erp / ct.h_sub, elasticity=ct.elasticity,
@@ -276,6 +300,7 @@ def build(sys) -> Dict:
         frozen=frozen, default_rot=default_rot, inv_mass=inv_mass, inv_inertia=inv_inertia,
         active_pos=body.active_pos, active_rot=body.active_rot,
         joints=joint_table(sys), thrusters=thrusters,
+        pp_rows=pp_rows, cb_rows=cb_rows,
         pp_moving=[r for r in pp_rows if not frozen[r["b"]]],
         pp_vec=(compile_pp_vec(pp_frozen, default_rot, inv_mass, inv_inertia)
                 if pp_frozen else None),
@@ -285,6 +310,13 @@ def build(sys) -> Dict:
         cb_vec=(compile_cb_vec(cb_frozen, default_rot, inv_mass, inv_inertia)
                 if cb_frozen else None),
     )
+    t["slots"] = touched_bodies(sys, t)
+    t["pass_through"] = sorted(set(range(n)) - set(t["slots"]))
+    if len(t["slots"]) > MAX_BODIES:
+        raise ValueError(f"whole-step kernel: {len(t['slots'])} touched bodies (of {n}) exceed "
+                         f"MAX_BODIES={MAX_BODIES} (the per-thread arrays of "
+                         f"csrc/whole_step.cuh)")
+    return t
 
 
 def _record(struct, values: Dict) -> np.ndarray:
@@ -312,18 +344,21 @@ def row_counts(t: Dict) -> Dict[str, int]:
 
 
 def pack(t: Dict) -> np.ndarray:
-    """The tables of `build` as the kernel's flat buffer of 32-bit words.
-    Point-plane and capsule-box rows against a moving body come first, as
-    fused.py's scalar rows run before its vectorised ones."""
-    n = t["n_bodies"]
+    """The tables of `build` as the kernel's flat buffer of 32-bit words, body
+    indices turned into slots. Point-plane and capsule-box rows against a
+    moving body come first, as fused.py's scalar rows run before its
+    vectorised ones; within each table the rows keep fused.py's order, since
+    the impulse sums are taken in it."""
+    slot = {b: i for i, b in enumerate(t["slots"])}
     recs = [_record(HEADER, dict(
-        n_bodies=n, n_act=t["n_act"], substeps=t["substeps"], **row_counts(t),
+        n_bodies=t["n_bodies"], n_slots=len(t["slots"]), info_contact=int(t["info_contact"]),
+        n_act=t["n_act"], substeps=t["substeps"], **row_counts(t),
         h=t["h"], half_h=0.5 * t["h"], vel_damp=t["vel_damp"], ang_damp=t["ang_damp"],
         gravity=t["gravity"], baumgarte=t["baumgarte"], one_plus_e=1.0 + t["elasticity"],
         friction=t["friction"], servo_gain=t["servo_gain"]))]
-    for i in range(n):
+    for i in t["slots"]:
         recs.append(_record(BODY, dict(
-            inv_mass=t["inv_mass"][i], inv_inertia=t["inv_inertia"][i],
+            index=i, inv_mass=t["inv_mass"][i], inv_inertia=t["inv_inertia"][i],
             active_pos=t["active_pos"][i], active_rot=t["active_rot"][i],
             frozen=int(t["frozen"][i]), rot_free=int(np.any(t["active_rot"][i] > 0)),
             default_rot=t["default_rot"][i])))
@@ -331,28 +366,32 @@ def pack(t: Dict) -> np.ndarray:
         lim = np.zeros((3, 2))
         lim[:j["dof"]] = j["lim"]
         recs.append(_record(JOINT, dict(
-            parent=j["parent"], child=j["child"], dof=j["dof"], act_idx=j["act_idx"],
-            act_kind=j["act_kind"], off_p=j["off_p"], off_c=j["off_c"], q_j=j["q_j"], lim=lim,
-            k=j["k"], kd=j["kd"], klim=j["klim"], kang=j["kang"], act_k=j["act_k"])))
-    recs += [_record(THRUSTER, th) for th in t["thrusters"]]
+            parent=slot[j["parent"]], child=slot[j["child"]], dof=j["dof"],
+            act_idx=j["act_idx"], act_kind=j["act_kind"], off_p=j["off_p"], off_c=j["off_c"],
+            q_j=j["q_j"], lim=lim, k=j["k"], kd=j["kd"], klim=j["klim"], kang=j["kang"],
+            act_k=j["act_k"])))
+    recs += [_record(THRUSTER, {**th, "body": slot[th["body"]]}) for th in t["thrusters"]]
     for r in t["pp_moving"]:
         recs.append(_record(POINT_PLANE, dict(
-            a=r["a"], b=r["b"], b_moves=1, point=r["point"], radius=r["radius"],
+            a=slot[r["a"]], b=slot[r["b"]], b_moves=1, point=r["point"], radius=r["radius"],
             normal=_qrot_f((0.0, 0.0, 1.0), tuple(r["plane_quat"])), off_w=r["plane_pos"],
             invm_a=t["inv_mass"][r["a"]], inertia_a=t["inv_inertia"][r["a"]])))
     pv = t["pp_vec"]
     for k, (a, point) in enumerate(pv["points"] if pv else []):
         recs.append(_record(POINT_PLANE, dict(
-            a=a, b=pv["uniq_b"][int(np.argmax(pv["b_mask"][:, k]))], b_moves=0, point=point,
-            radius=pv["radius"][k], normal=[pv["normal_cols"][c][k] for c in range(3)],
+            a=slot[a], b=slot[pv["uniq_b"][int(np.argmax(pv["b_mask"][:, k]))]], b_moves=0,
+            point=point, radius=pv["radius"][k],
+            normal=[pv["normal_cols"][c][k] for c in range(3)],
             off_w=pv["off_w"][k], invm_a=pv["invm_a"][k], inertia_a=pv["inertia_a"][k])))
-    recs += [_record(SPHERE_SPHERE, r) for r in t["ss_rows"]]
-    recs += [_record(CAPSULE_CAPSULE, r) for r in t["cc_rows"]]
+    recs += [_record(SPHERE_SPHERE, {**r, "a": slot[r["a"]], "b": slot[r["b"]]})
+             for r in t["ss_rows"]]
+    recs += [_record(CAPSULE_CAPSULE, {**r, "a": slot[r["a"]], "b": slot[r["b"]]})
+             for r in t["cc_rows"]]
     cv = t["cb_vec"]
     n_caps = len(cv["caps"]) if cv else 0
     for k, r in enumerate(t["cb_moving"]):  # capsule ids after the frozen rows' own
         recs.append(_record(CAPSULE_BOX, dict(
-            a=r["a"], b=r["b"], cap=n_caps + k, b_moves=1, e0=r["e0"], e1=r["e1"],
+            a=slot[r["a"]], b=slot[r["b"]], cap=n_caps + k, b_moves=1, e0=r["e0"], e1=r["e1"],
             radius=r["radius"], rot=np.zeros(9), box_q=r["box_quat"], box_off_w=r["box_pos"],
             halfsize=r["halfsize"], invm_a=t["inv_mass"][r["a"]],
             inertia_a=t["inv_inertia"][r["a"]])))
@@ -361,9 +400,10 @@ def pack(t: Dict) -> np.ndarray:
         for k in range(len(row_cap)):
             a, e0, e1 = cv["caps"][row_cap[k]]
             recs.append(_record(CAPSULE_BOX, dict(
-                a=a, b=cv["uniq_b"][int(np.argmax(cv["b_mask"][:, k, 0]))], cap=row_cap[k],
-                b_moves=0, e0=e0, e1=e1, radius=cv["radius"][k],
+                a=slot[a], b=slot[cv["uniq_b"][int(np.argmax(cv["b_mask"][:, k, 0]))]],
+                cap=row_cap[k], b_moves=0, e0=e0, e1=e1, radius=cv["radius"][k],
                 rot=[cv["rot_cols"][i][j][k] for i in range(3) for j in range(3)],
                 box_q=np.zeros(4), box_off_w=cv["box_off_w"][k], halfsize=cv["halfsize"][k],
                 invm_a=cv["invm_a"][k], inertia_a=cv["inertia_a"][k])))
+    recs += [_record(PASS_THROUGH, dict(body=i)) for i in t["pass_through"]]
     return np.concatenate(recs)

@@ -13,6 +13,11 @@ tensors to the plain `step_generic`. Joint dofs are ordered group-major
 (1-dof joints, then 2-dof, then 3-dof) and joint-major within a group; the
 action vector is `cfg.actuators` in declaration order (each its joint's dof
 dims), then one dim per thruster.
+
+`info="contact"` selects the contact-only Info variant (the JAX package's
+`POBRAX_INFO=contact`, read there when the System is built): `step` skips the
+joint and actuator Info sums and returns zeros for them, on both paths, with
+the state and the contact Info unchanged.
 """
 
 from __future__ import annotations
@@ -31,15 +36,19 @@ from pobrax_tpu_torch.physics.geometry import Contacts
 from pobrax_tpu_torch.physics.integrator import Integrator
 from pobrax_tpu_torch.physics.joints import JointGroup, _euler_to_quat_np
 from pobrax_tpu_torch.physics.state import Info, P, QP
+from pobrax_tpu_torch.physics.step_tables import INFO_MODES
 
 _AXES = np.eye(3, dtype=np.float32)
 
 
 class System:
-    def __init__(self, cfg: pcfg.Config, device=None):
+    def __init__(self, cfg: pcfg.Config, device=None, info: str = "full"):
         pcfg.validate(cfg)
+        if info not in INFO_MODES:
+            raise ValueError(f"info must be one of {INFO_MODES}, got {info!r}")
         self.config = cfg
         self.device = _device.resolve(device)
+        self.info_mode = info
         self.body = Bodies(cfg)
         self.num_bodies = self.body.count
 
@@ -199,6 +208,7 @@ class System:
     def step_generic(self, qp: QP, act: torch.Tensor) -> Tuple[QP, Info]:
         """The plain batched implementation of `step`, in PyTorch ops."""
         B, n, dev = qp.pos.shape[0], self.num_bodies, qp.pos.device
+        contact_only = self.info_mode == "contact"
         info = Info.zero(B, n, dev)
         for _ in range(self.config.substeps):
             dp_j = P.zero(B, n, dev)
@@ -218,6 +228,10 @@ class System:
             qp = self.integrator.kinetic(qp)
             dp_c = self.contacts.apply(qp)
             qp = self.integrator.collide(qp, dp_c)
-            info = Info(contact=info.contact + dp_c, joint=info.joint + dp_j,
-                        actuator=info.actuator + dp_a)
+            info = Info(contact=info.contact + dp_c,
+                        joint=info.joint if contact_only else info.joint + dp_j,
+                        actuator=info.actuator if contact_only else info.actuator + dp_a)
+        if contact_only:
+            zero = P.zero_view(info.contact.vel)
+            info = Info(contact=info.contact, joint=zero, actuator=zero)
         return qp, info

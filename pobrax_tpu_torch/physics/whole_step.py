@@ -18,6 +18,11 @@ The kernel is built at first use with nvcc into `build/` at the root of the
 checkout, as a shared library with a plain C interface loaded by ctypes
 (no PyTorch headers, so the build takes seconds), cached by a hash of the
 sources and flags. `launches` counts kernel launches and nothing else.
+
+A System built with `info="contact"` steps with the contact-only Info
+variant: the kernel skips the joint and actuator sums and leaves those four
+arrays unwritten, and the wrapper returns `P.zero_view` for them (one zero,
+expanded: no bytes, and torch refuses in-place writes to it).
 """
 
 from __future__ import annotations
@@ -147,24 +152,37 @@ def launch(sys, qp: QP, act: torch.Tensor) -> Tuple[QP, Info]:
     if dev.type != "cuda":
         raise ValueError(f"whole-step kernel: tensors must be on a CUDA device, got {dev}")
     B, n = qp.pos.shape[0], sys.num_bodies
-    tables = device_tables(sys, dev)
+    tables = device_tables(sys, dev)  # raises ValueError for a System it cannot hold
     _check("qp.pos", qp.pos, (B, n, 3), dev)
     _check("qp.rot", qp.rot, (B, n, 4), dev)
     _check("qp.vel", qp.vel, (B, n, 3), dev)
     _check("qp.ang", qp.ang, (B, n, 3), dev)
     _check("act", act, (B, sys.action_size), dev)
     lib = load_library()
-    outs = [torch.empty((B, n, k), device=dev) for k in _OUT_WIDTHS]
+    widths = _OUT_WIDTHS[:6] if sys.info_mode == "contact" else _OUT_WIDTHS
+    outs = [torch.empty((B, n, k), device=dev) for k in widths]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (len(_OUT_WIDTHS) - len(outs))
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ws_whole_step(tables.data_ptr(), B, qp.pos.data_ptr(), qp.rot.data_ptr(),
-                            qp.vel.data_ptr(), qp.ang.data_ptr(), act.data_ptr(),
-                            *[o.data_ptr() for o in outs], stream)
+                            qp.vel.data_ptr(), qp.ang.data_ptr(), act.data_ptr(), *ptrs, stream)
     if err != 0:
         raise RuntimeError(f"whole-step kernel launch failed with CUDA error {err}")
     launches += 1
-    p, r, v, a, cv, ca, jv, ja, av, aa = outs
-    return (QP(pos=p, rot=r, vel=v, ang=a),
-            Info(contact=P(vel=cv, ang=ca), joint=P(vel=jv, ang=ja), actuator=P(vel=av, ang=aa)))
+    return unpack(sys, outs)
+
+
+def unpack(sys, outs) -> Tuple[QP, Info]:
+    """(QP, Info) of the kernel's output arrays: pos, rot, vel, ang, contact
+    vel / ang, then joint and actuator vel / ang unless the System keeps
+    contact Info only, where those four are zero views."""
+    p, r, v, a, cv, ca = outs[:6]
+    if sys.info_mode == "contact":
+        joint = actuator = P.zero_view(cv)
+    else:
+        jv, ja, av, aa = outs[6:]
+        joint, actuator = P(vel=jv, ang=ja), P(vel=av, ang=aa)
+    return QP(pos=p, rot=r, vel=v, ang=a), Info(contact=P(vel=cv, ang=ca), joint=joint,
+                                                 actuator=actuator)
 
 
 # ---- the work one launch must do, for the bound ----------------------------
@@ -187,7 +205,7 @@ OPS_BODY_FORCES = 9        # total_v / total_a of a body that moves
 OPS_AXIS_VEL, OPS_AXIS_POS, OPS_AXIS_ROT = 3, 2, 3  # per active axis
 OPS_ROT_INTEGRATE = 48     # quaternion derivative and renormalisation
 OPS_BODY_CONTACT = 1       # per active axis: vel/ang += impulse
-OPS_BODY_INFO = 18         # six Info sums per body
+OPS_BODY_INFO = 18         # six Info sums per body; 6 with contact Info only
 OPS_RESOLVE, OPS_RESOLVE_SIDE = 126, (21, 24)  # two-body impulse; body a, body b
 OPS_PP_ROW = 146           # frozen plane: world point, penetration, resolve_a, sums
 OPS_PP_MOVING_ROW = 111    # moving plane: the same with the plane turned, plus resolve
@@ -210,9 +228,12 @@ def cost(sys, B: int) -> Dict[str, float]:
     """Operations and bytes one launch needs for `B` envs of `sys`: each
     input read once, each output written once; the kernel is branch-free in
     the state (its branches follow the tables), so the count does not depend
-    on the data."""
+    on the data. A body that passes through costs its bytes and no operation;
+    the contact-only variant drops the 12 joint and actuator Info sums per
+    body and those four arrays, which it does not write."""
     t = step_tables.build(sys)
     n = t["n_bodies"]
+    info_words = 6 if t["info_contact"] else 18
     ops = 0
     for j in t["joints"]:
         dof = j["dof"]
@@ -220,13 +241,13 @@ def cost(sys, B: int) -> Dict[str, float]:
         if j["act_idx"] >= 0:
             ops += OPS_ACTUATOR + dof * OPS_ACT_DOF[j["act_kind"]]
     ops += len(t["thrusters"]) * OPS_THRUSTER
-    for i in range(n):
+    for i in t["slots"]:
         ap, ar = t["active_pos"][i] > 0, t["active_rot"][i] > 0
         if ap.any() or ar.any():
             ops += OPS_BODY_FORCES
         ops += ap.sum() * (OPS_AXIS_VEL + OPS_AXIS_POS) + ar.sum() * OPS_AXIS_ROT
         ops += OPS_ROT_INTEGRATE * int(ar.any())
-        ops += (ap.sum() + ar.sum()) * OPS_BODY_CONTACT + OPS_BODY_INFO
+        ops += (ap.sum() + ar.sum()) * OPS_BODY_CONTACT + OPS_BODY_INFO * info_words // 18
     for r in t["pp_moving"]:
         ops += OPS_PP_MOVING_ROW + _resolve_ops(t, r["a"], r["b"])
     if t["pp_vec"]:
@@ -246,7 +267,7 @@ def cost(sys, B: int) -> Dict[str, float]:
                 + len(cv["body_slices"]) * OPS_FLUSH)
     ops *= t["substeps"] * B
     words_in = B * (n * (3 + 4 + 3 + 3) + t["n_act"])
-    words_out = B * n * (3 + 4 + 3 + 3 + 6 * 3)
+    words_out = B * n * (3 + 4 + 3 + 3 + info_words)
     table_bytes = step_tables.pack(t).nbytes
     return {"flops": float(ops), "bytes": float(4 * (words_in + words_out) + table_bytes)}
 

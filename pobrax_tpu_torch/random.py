@@ -5,7 +5,8 @@ The JAX package seeds resets, the AntTag adversary and autoreset with
 jax 0.9 runs it). Its fixtures and goldens are therefore replayable only by
 a generator that reproduces those bits exactly; this module is that
 generator, for the few functions the ported path uses: `PRNGKey`, `split`,
-`uniform`, `randint` (and `random_bits` beneath them).
+`uniform`, `randint`, `permutation` and `choice` without replacement (and
+`random_bits` beneath them).
 
 Keys are int64 tensors whose last axis holds the two uint32 words of a JAX
 key (values in [0, 2**32)); any leading axes are batch axes, so
@@ -16,6 +17,7 @@ int64 with `& 0xFFFFFFFF`, because CPU torch's uint32 support is thin.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Union
 
 import torch
@@ -125,3 +127,29 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -
     offset = (_mul32(higher % span, multiplier) + lower % span) & _MASK
     offset = offset % span
     return (offset + int(minval)).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)`: a permutation of range(n) per key,
+    (..., n) int64. jax's `_shuffle` runs ceil(3 ln n / ln(2**32 - 1))
+    rounds (one for n up to ~1600), each splitting the key into (key,
+    subkey), drawing 32 bits per element from the subkey and sorting the
+    elements by them, stably. The bits sort as int64, so keys at 2**31 and
+    above keep their unsigned order."""
+    n = int(n)
+    perm = torch.arange(n, device=key.device).expand(key.shape[:-1] + (n,))
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_MASK)))
+    for _ in range(rounds):
+        key, sub = split(key, 2).unbind(-2)
+        order = torch.sort(random_bits(sub, (n,)), dim=-1, stable=True).indices
+        perm = torch.gather(perm, -1, order)
+    return perm
+
+
+def choice(key: torch.Tensor, a: torch.Tensor, n_draws: int) -> torch.Tensor:
+    """`jax.random.choice(key, a, (n_draws,), replace=False)` over the first
+    axis of `a`: the first `n_draws` rows of `a` in `permutation` order,
+    (..., n_draws) + a.shape[1:]. Sampling with replacement is not ported."""
+    if n_draws > a.shape[0]:
+        raise ValueError(f"cannot draw {n_draws} of {a.shape[0]} without replacement")
+    return a[permutation(key, a.shape[0])[..., :n_draws]]

@@ -119,7 +119,7 @@ def test_substeps_8_preset_tracks_jax():
 
 def test_unported_env_names_raise():
     with pytest.raises(ValueError, match="ROADMAP"):
-        create("ant_gather", device="cpu")
+        create("halfcheetah", device="cpu")
     with pytest.raises(ValueError):
         create("ant_tag", device="cpu", autoreset_mode="Cached")
 

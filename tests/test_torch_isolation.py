@@ -27,6 +27,9 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "pobrax_tpu"))
 print(len(names), bad)
 assert not bad, bad
+missing = {{"pobrax_tpu_torch.envs." + m for m in
+           ("ant_heavenhell", "ant_gather", "ant_maze", "maze_utils", "exploration")}} - set(names)
+assert not missing, missing
 """
 
 

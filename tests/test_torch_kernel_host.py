@@ -7,10 +7,13 @@ ctypes, and holds it against the port's plain step at the fused-vs-generic
 tolerances of tests/test_fused.py (pos/rot 1e-5, vel/ang/contact 1e-3), so a
 wrong kernel fails here, before it reaches a GPU: on AntTag, on every stock
 System of the port (multi-dof joints, angle servos, thrusters, two-body
-capsule contacts), on tests/test_fused.py's 2-dof + servo system and its
-mini system (every row kind, a thruster), and over a 20-step humanoid
-rollout against the JAX package. No entry point of the package loads this
-build. Skips where g++ is missing.
+capsule contacts), on the PO ant Systems (HeavenHell's T-maze and the maze
+with ants against their walls, AntGather's 16 pass-through bodies bit-equal),
+on tests/test_fused.py's 2-dof + servo system and its mini system (every row
+kind, a thruster), over a 20-step humanoid rollout against the JAX package,
+and in the contact-only Info variant (bit-equal to the full one in state and
+contact Info, and against the JAX fused step under POBRAX_INFO=contact). No
+entry point of the package loads this build. Skips where g++ is missing.
 """
 
 import ctypes
@@ -31,8 +34,9 @@ from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import create
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.physics import config as tc
+from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
 from pobrax_tpu_torch.physics import step_tables, whole_step
-from pobrax_tpu_torch.physics.state import P, QP, Info
+from pobrax_tpu_torch.physics.state import QP
 from pobrax_tpu_torch.physics.system import System
 from tests.test_torch_physics import mini_cfg, multidof_cfg
 
@@ -63,15 +67,17 @@ def host_lib():
 
 
 def host_step(lib, sys_, qp, act):
-    """One control step through the host build of the kernel's code."""
+    """One control step through the host build of the kernel's code. The
+    outputs start as NaN, so a value the kernel fails to write shows; with
+    contact Info only, the joint and actuator pointers are null."""
     tables = step_tables.pack(step_tables.build(sys_))
     B, n = qp.pos.shape[0], sys_.num_bodies
     ins = [x.contiguous() for x in (qp.pos, qp.rot, qp.vel, qp.ang, act)]
-    outs = [torch.empty(B, n, k) for k in _WIDTHS]
-    lib.ws_whole_step_host(tables.ctypes.data, B, *[x.data_ptr() for x in ins],
-                           *[o.data_ptr() for o in outs])
-    p, r, v, a, cv, ca, jv, ja, av, aa = outs
-    return QP(p, r, v, a), Info(P(cv, ca), P(jv, ja), P(av, aa))
+    widths = _WIDTHS[:6] if sys_.info_mode == "contact" else _WIDTHS
+    outs = [torch.full((B, n, k), float("nan")) for k in widths]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (len(_WIDTHS) - len(outs))
+    lib.ws_whole_step_host(tables.ctypes.data, B, *[x.data_ptr() for x in ins], *ptrs)
+    return whole_step.unpack(sys_, outs)
 
 
 def assert_close(got, want, info_rtol=1e-5):
@@ -92,7 +98,7 @@ def assert_close(got, want, info_rtol=1e-5):
 
 
 def test_layout_words_match_step_tables(host_lib):
-    got = (ctypes.c_int * 8)()
+    got = (ctypes.c_int * 16)()
     n = host_lib.ws_layout_words(got)
     assert list(got[:n]) == [step_tables.words(s) for s in step_tables.STRUCTS]
 
@@ -197,16 +203,21 @@ def test_host_kernel_matches_plain_step_on_test_systems(host_lib, scene):
     """tests/test_fused.py's 2-dof + servo system and its mini system, from
     seeded jittered states."""
     sys_ = System((multidof_cfg if scene == "multidof" else mini_cfg)(tc), device="cpu")
-    rs = np.random.RandomState(4)
-    B, n = 8, sys_.num_bodies
+    qp, act = jittered(sys_, np.random.RandomState(4), 8)
+    assert_close(host_step(host_lib, sys_, qp, act), sys_.step_generic(qp, act))
+
+
+def jittered(sys_, rs, B):
+    """A batch of the default pose jittered by 3 cm, with random velocities
+    on the moving bodies, and random actions."""
+    n = sys_.num_bodies
     qp0 = sys_.default_qp()
     moving = torch.from_numpy(~sys_.body.frozen)[None, :, None].float()
     qp = QP(pos=qp0.pos + torch.from_numpy(0.03 * rs.randn(B, n, 3).astype(np.float32)),
             rot=qp0.rot.expand(B, n, 4).contiguous(),
             vel=moving * torch.from_numpy(0.3 * rs.randn(B, n, 3).astype(np.float32)),
             ang=moving * torch.from_numpy(0.3 * rs.randn(B, n, 3).astype(np.float32)))
-    act = torch.from_numpy(rs.uniform(-1, 1, (B, sys_.action_size)).astype(np.float32))
-    assert_close(host_step(host_lib, sys_, qp, act), sys_.step_generic(qp, act))
+    return qp, torch.from_numpy(rs.uniform(-1, 1, (B, sys_.action_size)).astype(np.float32))
 
 
 def test_host_kernel_replays_jax_humanoid(host_lib, monkeypatch):
@@ -232,3 +243,105 @@ def test_host_kernel_replays_jax_humanoid(host_lib, monkeypatch):
         np.testing.assert_allclose(ts.reward.numpy(), np.asarray(js.reward), rtol=0, atol=1e-4)
         np.testing.assert_array_equal(ts.done.numpy(), np.asarray(js.done))
     assert len(calls) == T
+
+
+# the PO ant Systems: a torso coordinate 0.35 m short of a wall's inner face,
+# so the capsule-box rows of the ants moved there are live (AntTag's +x arena
+# wall at x = 5.5, HeavenHell's T-maze stem wall at x = 2.0, the maze's
+# corridor wall at y = 1.75); AntGather's ants stay where 20 plain steps leave
+# them, on the ground amid the pass-through apples and bombs
+WALLS = {"ant_heavenhell": (0, 1.65), "ant_maze": (1, 1.4)}
+
+
+def push_ants(env, qp, axis, value, envs_=slice(None)):
+    """`qp` with the ant's 9 bodies in `envs_` shifted along `axis` so the
+    torso's coordinate is `value`."""
+    ant = [env.sys.body.index[n] for n in ANT_BODY_NAMES]
+    pos = qp.pos.clone()
+    shift = value - pos[envs_, env.torso_idx, axis]
+    pos[envs_, ant[0]:ant[-1] + 1, axis] += shift[:, None]
+    return qp.replace(pos=pos)
+
+
+def po_state(name, B=8, info="full"):
+    env = envs._envs[name](device="cpu", info=info)
+    qp = env.reset(jr.split(jr.PRNGKey(3), B)).qp
+    g = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        qp, _ = env.sys.step_generic(qp, torch.rand(B, 8, generator=g) * 2 - 1)
+    if name in WALLS:
+        qp = push_ants(env, qp, *WALLS[name])
+        assert bool((env.sys.contacts._capsule_box(qp)[4] > 0).any(-1).all()), "walls live"
+    return env, qp, torch.rand(B, 8, generator=g) * 2 - 1
+
+
+@pytest.mark.parametrize("name", ["ant_heavenhell", "ant_gather", "ant_maze"])
+def test_host_kernel_matches_plain_step_on_po_systems(host_lib, name):
+    """HeavenHell's T-maze (72 capsule-box rows), the maze (108) and
+    AntGather's 27 bodies, of which 16 pass through: their state comes out
+    bit-equal to the input and their Info exactly zero (the outputs start as
+    NaN, so a body left unwritten would show)."""
+    env, qp, act = po_state(name)
+    got = host_step(host_lib, env.sys, qp, act)
+    assert_close(got, env.sys.step_generic(qp, act))
+    passes = step_tables.build(env.sys)["pass_through"]
+    assert len(passes) == {"ant_heavenhell": 3, "ant_gather": 16, "ant_maze": 1}[name]
+    q, i = got
+    for f in ("pos", "rot", "vel", "ang"):
+        assert torch.equal(getattr(q, f)[:, passes], getattr(qp, f)[:, passes]), f
+    for part in (i.contact, i.joint, i.actuator):
+        assert not bool(part.vel[:, passes].any()) and not bool(part.ang[:, passes].any())
+
+
+@pytest.mark.parametrize("scene", ["ant_tag", "mini"])
+def test_contact_info_variant(host_lib, scene):
+    """`info="contact"` on the host build and on the plain step: state and
+    contact Info bit-equal to the "full" variant of the same path, joint and
+    actuator Info exactly zero."""
+    if scene == "ant_tag":
+        env = AntTagEnv(device="cpu")
+        full, contact = env.sys, AntTagEnv(device="cpu", info="contact").sys
+        qp = _state(env, "wall")
+        act = torch.rand(qp.pos.shape[0], 8, generator=torch.Generator().manual_seed(2)) * 2 - 1
+    else:
+        full = System(mini_cfg(tc), device="cpu")
+        contact = System(mini_cfg(tc), device="cpu", info="contact")
+        qp, act = jittered(full, np.random.RandomState(2), 4)
+    for step in (lambda s, q, a: host_step(host_lib, s, q, a),
+                 lambda s, q, a: s.step_generic(q, a)):
+        (qf, i_f), (qc, ic) = step(full, qp, act), step(contact, qp, act)
+        for f in ("pos", "rot", "vel", "ang"):
+            assert torch.equal(getattr(qf, f), getattr(qc, f)), f
+        assert torch.equal(i_f.contact.vel, ic.contact.vel)
+        assert torch.equal(i_f.contact.ang, ic.contact.ang)
+        for part in (ic.joint, ic.actuator):
+            assert part.vel.shape == qp.pos.shape and not bool(part.vel.any())
+            assert not bool(part.ang.any())
+        assert bool(i_f.joint.vel.any())
+
+
+def test_contact_info_variant_matches_jax_fused(host_lib, monkeypatch):
+    """The host build with `info="contact"` against the JAX package's fused
+    step built under POBRAX_INFO=contact (tests/test_fused.py's mini system):
+    state and contact Info at the fused-vs-generic tolerances, joint and
+    actuator Info both exactly zero."""
+    from pobrax_tpu.physics import config as jc
+    from pobrax_tpu.physics import system as jsys
+
+    monkeypatch.setenv("POBRAX_INFO", "contact")
+    monkeypatch.setenv("POBRAX_FUSED", "1")
+    jsys_ = jsys.System(mini_cfg(jc))
+    tsys_ = System(mini_cfg(tc), device="cpu", info="contact")
+    qp, act = jittered(tsys_, np.random.RandomState(6), 4)
+    jqp = type(jsys_.default_qp())(*(x.numpy() for x in (qp.pos, qp.rot, qp.vel, qp.ang)))
+    jq, ji = jax.jit(jax.vmap(jsys_._fused_step))(jqp, act.numpy())
+    q, i = host_step(host_lib, tsys_, qp, act)
+    for name, tol in (("pos", 1e-5), ("rot", 1e-5), ("vel", 1e-3), ("ang", 1e-3)):
+        np.testing.assert_allclose(getattr(q, name).numpy(), np.asarray(getattr(jq, name)),
+                                   rtol=0, atol=tol, err_msg=name)
+    np.testing.assert_allclose(i.contact.vel.numpy(), np.asarray(ji.contact.vel), rtol=0,
+                               atol=1e-3)
+    assert float(np.abs(np.asarray(ji.contact.vel)).max()) > 0
+    for part_t, part_j in ((i.joint, ji.joint), (i.actuator, ji.actuator)):
+        assert not bool(part_t.vel.any()) and not bool(part_t.ang.any())
+        assert not np.asarray(part_j.vel).any() and not np.asarray(part_j.ang).any()

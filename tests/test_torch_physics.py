@@ -25,6 +25,12 @@ from pobrax_tpu_torch.physics import config as tc
 from pobrax_tpu_torch.physics.state import QP
 from pobrax_tpu_torch.physics.system import System as TSystem
 
+# The port's CPU tests step batches of 1-8 envs, where torch's intra-op
+# threads buy nothing; under the suite's parallel workers (pytest-xdist, which
+# imports every test module in every worker, so this line reaches them all)
+# they oversubscribe the cores and doubled the port tests' wall time.
+torch.set_num_threads(1)
+
 
 def mini_cfg(c):
     """tests/test_fused.py::_mini_system's scene, from config module `c`:

@@ -1,8 +1,9 @@
 """pobrax_tpu_torch.random against jax.random, bit for bit.
 
-Every draw the ported AntTag path makes: `split` into 5 and into a batch,
-uniform (8,) and (2,) with array bounds, randint((), 0, 4), and the per-env
-split(r, 2) of the autoreset wrappers.
+Every draw the ported paths make: `split` into 5 and into a batch,
+uniform (8,) and (2,) with array bounds, randint((), 0, 4), the per-env
+split(r, 2) of the autoreset wrappers, and permutation / choice without
+replacement (the HeavenHell and AntGather resets).
 """
 
 import jax
@@ -74,3 +75,31 @@ def test_rejection_chain(seed):
         want = np.asarray(jax.random.uniform(jk, (2,), minval=-CAGE, maxval=CAGE))
         np.testing.assert_array_equal(jr.uniform(tk, (2,), -CAGE, CAGE).numpy(), want)
     assert jnp.asarray(jk).dtype == jnp.uint32
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_permutation(seed):
+    """`_shuffle`'s rounds of (split, 32 bits, stable sort): one round up to
+    n ~ 1600, two at 2000; n = 2 is HeavenHell's side swap, 156 AntGather's
+    grid."""
+    jk, tk = _keys(seed)
+    bj, bt = jax.random.split(jk, 32), jr.split(tk, 32)
+    for n in (1, 2, 5, 156, 2000):
+        want = np.asarray(jax.vmap(lambda k: jax.random.permutation(k, n))(bj))
+        np.testing.assert_array_equal(jr.permutation(bt, n).numpy(), want)
+    np.testing.assert_array_equal(jr.permutation(tk, 156).numpy(),
+                                  np.asarray(jax.random.permutation(jk, 156)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_choice_without_replacement(seed):
+    """`choice(key, a, (k,), replace=False)` over rows, as the gather spawn
+    (16 of 156 grid points) and the heaven/hell swap (2 of 2) draw."""
+    jk, tk = _keys(seed)
+    bj, bt = jax.random.split(jk, 32), jr.split(tk, 32)
+    for n, k in ((156, 16), (2, 2), (7, 3)):
+        a = np.random.RandomState(seed % 1000).randn(n, 3).astype(np.float32)
+        want = np.asarray(jax.vmap(lambda key: jax.random.choice(key, a, (k,), replace=False))(bj))
+        np.testing.assert_array_equal(jr.choice(bt, torch.from_numpy(a), k).numpy(), want)
+    with pytest.raises(ValueError):
+        jr.choice(tk, torch.zeros(3, 2), 4)

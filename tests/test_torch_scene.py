@@ -5,8 +5,9 @@ numpy on both sides), and so must the whole-step kernel's host tables:
 `step_tables.joint_table`, `compile_cb_vec` and `compile_pp_vec` against the
 joint table of fused.py:365-382 and fused.py's `_compile_cb_vec` /
 `_compile_pp_vec`. Every engine feature builds into the kernel's tables and
-the host build of the kernel steps it like the plain step; only a System of
-more than MAX_BODIES bodies (AntGather's scene) raises ValueError.
+the host build of the kernel steps it like the plain step. Only the bodies
+the step touches take a slot: AntGather's 27-body scene builds with 11, and
+only a System of more than MAX_BODIES touched bodies raises ValueError.
 """
 
 import dataclasses
@@ -128,14 +129,19 @@ def test_packed_tables_layout(pair):
     _, tsys = pair
     t = step_tables.build(tsys)
     buf = step_tables.pack(t)
-    want = (step_tables.words(step_tables.HEADER) + 12 * step_tables.words(step_tables.BODY)
+    # 11 slots: the frozen Target sphere, which no row names, passes through
+    assert t["pass_through"] == [tsys.body.index["Target"]]
+    want = (step_tables.words(step_tables.HEADER) + 11 * step_tables.words(step_tables.BODY)
             + 8 * step_tables.words(step_tables.JOINT)
             + 9 * step_tables.words(step_tables.POINT_PLANE)
-            + 36 * step_tables.words(step_tables.CAPSULE_BOX))
+            + 36 * step_tables.words(step_tables.CAPSULE_BOX)
+            + 1 * step_tables.words(step_tables.PASS_THROUGH))
     assert buf.dtype == np.float32 and buf.size == want
     header = buf[:step_tables.words(step_tables.HEADER)].view(np.int32)
-    # bodies, actions, substeps, joints, thrusters, pp, ss, cc, cb rows
-    assert list(header[:9]) == [12, 8, 10, 8, 0, 9, 0, 0, 36]
+    # bodies, slots, contact-only Info, actions, substeps, joints, thrusters,
+    # pp, ss, cc, cb rows
+    assert list(header[:11]) == [12, 11, 0, 8, 10, 8, 0, 9, 0, 0, 36]
+    assert buf[-1:].view(np.int32)[0] == tsys.body.index["Target"]
 
 
 def _feature_scene(kind):
@@ -199,8 +205,24 @@ def _port_config(obj):
 
 
 def test_step_tables_reject_uncovered_features():
-    """AntGather's scene (27 bodies) exceeds the kernel's per-thread arrays."""
+    """17 moving bodies exceed the kernel's per-thread arrays."""
+    sys_ = TSystem(tc.Config(bodies=tuple(tc.Body(name=f"b{i}") for i in range(17))),
+                   device="cpu")
+    with pytest.raises(ValueError, match="17 touched bodies .*MAX_BODIES"):
+        step_tables.build(sys_)
+
+
+def test_step_tables_slot_ant_gather():
+    """AntGather's scene (27 bodies): the 9 ant bodies, Ground and Arena take
+    slots, the 16 apples and bombs pass through, and every packed index is a
+    slot."""
     sys_ = TSystem(_port_config(JAntGather()._cfg), device="cpu")
     assert sys_.num_bodies == 27
-    with pytest.raises(ValueError, match="MAX_BODIES"):
-        step_tables.build(sys_)
+    t = step_tables.build(sys_)
+    names = sys_.body.names
+    assert [names[i] for i in t["slots"][-2:]] == ["Ground", "Arena"]
+    assert len(t["slots"]) == 11 and len(t["pass_through"]) == 16
+    assert all(names[i].startswith(("Target_", "Bomb_")) for i in t["pass_through"])
+    buf = step_tables.pack(t)
+    header = buf[:step_tables.words(step_tables.HEADER)].view(np.int32)
+    assert list(header[:3]) == [27, 11, 0]

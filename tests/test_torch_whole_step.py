@@ -13,7 +13,7 @@ from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import create
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.physics import config as c
-from pobrax_tpu_torch.physics import whole_step
+from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.physics.system import System
 
 
@@ -54,7 +54,7 @@ def test_cost_of_ant_tag_is_operation_bound():
     sys_ = AntTagEnv(device="cpu").sys
     cost = whole_step.cost(sys_, 4096)
     # state + act in, state + six Info arrays out, float32, plus the tables
-    assert cost["bytes"] == 4 * 4096 * (12 * 13 + 8 + 12 * 31) + 4 * 1797
+    assert cost["bytes"] == 4 * 4096 * (12 * 13 + 8 + 12 * 31) + 4 * 1795
     assert cost["flops"] > 1e9
     ms, by = whole_step.bound_ms(sys_, 4096)
     assert by == "operations" and 0.01 < ms < 0.03
@@ -72,6 +72,24 @@ def test_cost_of_stock_systems(name):
     ms, by = whole_step.bound_ms(sys_, 4096)
     assert ms > 0 and by == "operations"
     assert whole_step.cost(sys_, 8)["flops"] * 512 == cost["flops"]
+
+
+def test_cost_of_pass_through_and_contact_info():
+    """AntGather has AntTag's rows and 15 more bodies that pass through: the
+    same operations, and their bytes (13 words in, 31 out each). The
+    contact-only variant drops the 12 joint and actuator Info sums of each of
+    AntTag's 11 slots per substep and 12 words out per body."""
+    tag_sys = AntTagEnv(device="cpu").sys
+    gather_sys = create("ant_gather", device="cpu").sys
+    tag, gather = whole_step.cost(tag_sys, 4096), whole_step.cost(gather_sys, 4096)
+    contact = whole_step.cost(AntTagEnv(device="cpu", info="contact").sys, 4096)
+    table_bytes = [step_tables.pack(step_tables.build(s)).nbytes for s in (tag_sys, gather_sys)]
+    assert gather["flops"] == tag["flops"]
+    assert (gather["bytes"] - tag["bytes"]
+            == 4 * 4096 * 15 * (13 + 31) + table_bytes[1] - table_bytes[0])
+    assert tag["flops"] - contact["flops"] == 12 * 11 * 10 * 4096
+    assert tag["bytes"] - contact["bytes"] == 4 * 4096 * 12 * 12
+    assert whole_step.bound_ms(create("ant_maze", device="cpu").sys, 4096)[1] == "operations"
 
 
 @pytest.mark.cuda
