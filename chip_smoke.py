@@ -5,11 +5,13 @@ Drives `pobrax_tpu_torch`'s main paths — the PO ant tasks AntTag,
 AntHeavenHell, AntGather and AntMaze, and the masked stock envs Humanoid and
 Grasp, each at 4096 batched envs with the cached on-device randomised
 autoreset, every control step one launch of the hand-written whole-step CUDA
-kernel — and checks them. Imports no jax and nothing of `pobrax_tpu`; the
-fixtures are read with numpy. Phases:
+kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
+`pobrax_tpu`; the fixtures are read with numpy. Phases:
   1. card: name and power limit (nvidia-smi) and torch's device name;
   2. build: compile csrc/whole_step.cu with nvcc, print seconds and ptxas
-     registers / spills;
+     registers, stack frame and spills, and per System the kernel's resident
+     warps per SM (CUDA's occupancy calculator, with the System's shared
+     memory);
   3. kernel against plain at 4096 envs, from an AntTag reset plus 50 plain
      steps (ground contacts active) with 256 of the ants pushed against an
      arena wall (capsule-box contacts active): one control step each way;
@@ -23,7 +25,8 @@ fixtures are read with numpy. Phases:
      pass-through apples and bombs must come out bit-equal to their input
      with zero Info; and AntTag with `info="contact"`, whose joint and
      actuator Info must be exactly 0 and whose state and contact Info must be
-     bit-equal to the "full" launch's;
+     bit-equal to the "full" launch's; last, ragged batches of 4095 envs (the
+     last block one env short) cut from the walled AntTag and maze batches;
   4. fixture replay through the kernel at batch 1, the recorded actions of
      po-brax's tests/fixtures/ref_ant_tag_s7.npz, ref_ant_heavenhell_s7.npz
      and ref_ant_gather_s7.npz;
@@ -40,10 +43,16 @@ fixtures are read with numpy. Phases:
      kernel's launch counter set to 0 just before the timed steps and read
      just after; AntGather prints the apples and bombs caught;
   6. times: per System (and AntTag's contact-only variant), the kernel's and
-     the plain version's time per control step at 4096 envs, and the bound.
-Then one JSON line with an entry per System, the card's name and power
-limit, and the last line `{"ok": true, "device": {...}}`. Any failed phase
-exits non-zero before that line is printed. Without a CUDA device it exits 1
+     the plain version's time per control step at 4096 envs (CUDA events over
+     back-to-back launches, after 0.2 s of warm-up), the kernel's device time
+     (launches queued behind a sleep kernel, so they run back to back: the
+     two differ where the wrapper's host work per launch outlasts the
+     kernel, on the small Systems), and the bound; the timing helpers are
+     time_kernel.py's.
+Then one JSON line with an entry per System (with its resident warps per
+SM), the card's name and power limit, and the last line
+`{"ok": true, "device": {...}}`. Any failed phase exits non-zero before that
+line is printed. Without a CUDA device it exits 1
 at once.
 """
 
@@ -51,7 +60,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -64,6 +72,7 @@ from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.masks import VELOCITY
 from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
+from time_kernel import card_line, cuda_ms, device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = [os.path.join(ROOT, "tests", "fixtures", f"ref_{name}_s7.npz")
@@ -98,6 +107,7 @@ PO_MAIN = ("ant_heavenhell", "ant_gather", "ant_maze")  # cached, MAIN_STEPS eac
 PO_WARM_STEPS = {"ant_heavenhell": 20, "ant_maze": 20, "ant_gather": 50}
 PO_WALLS = {"ant_heavenhell": (0, 1.65), "ant_maze": (1, 1.4)}
 CONTACT = "ant_tag,info=contact"  # AntTag's System with contact Info only
+RAGGED = 4095  # a batch that leaves the last block one env short
 
 
 def fail(msg: str) -> None:
@@ -105,27 +115,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms over `reps` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def phase_build() -> None:
+def phase_build(dev) -> dict:
+    """Builds the kernel; returns the resident warps per SM of each System."""
     t0 = time.perf_counter()
     path, log = whole_step.build()
     whole_step.load_library()
@@ -133,6 +124,17 @@ def phase_build() -> None:
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "stack frame" in line:
             print(f"[build] ptxas: {line.strip()}", flush=True)
+    warps = {}
+    for name in ("ant_tag", *STOCK_WARM_STEPS, *PO_MAIN):
+        sys_ = create(name, device=dev).sys
+        warps[name] = whole_step.resident_warps(sys_)
+        print(f"[build] {name}: {whole_step.shared_bytes(sys_)} bytes of shared memory a block "
+              f"({step_tables.ENVS_PER_BLOCK} envs), {warps[name]} resident warps per SM",
+              flush=True)
+    warps[CONTACT] = warps["ant_tag"]
+    if min(warps.values()) < 16:
+        fail("fewer than 16 resident warps per SM")
+    return warps
 
 
 def plain_steps(sys_, qp, steps: int, g):
@@ -147,6 +149,7 @@ def compare(tag: str, sys_, qp, act, note: str):
     """One control step through the kernel and through the plain step from
     `qp`; fails unless MIN_AGREE of the envs agree and all is finite.
     Returns the largest |err| over pos/rot/vel/ang."""
+    batch = qp.pos.shape[0]
     qk, ik = whole_step.launch(sys_, qp, act)
     qg, ig = sys_.step_generic(qp, act)
     torch.cuda.synchronize()
@@ -158,9 +161,9 @@ def compare(tag: str, sys_, qp, act, note: str):
              & (errs["vel"] <= TOL_VEL) & (errs["ang"] <= TOL_VEL))
     frac = float(agree.float().mean())
     contacts = int((ig.contact.vel.abs().flatten(1).max(1).values > 0).sum())
-    print("[kernel-vs-plain:%s] B=%d, %d envs in contact%s; max |err| %s" % (
-        tag, B, contacts, note, ", ".join(f"{k} {float(v.max()):.3e}" for k, v in errs.items())),
-        flush=True)
+    worst = ", ".join(f"{k} {float(v.max()):.3e}" for k, v in errs.items())
+    print(f"[kernel-vs-plain:{tag}] B={batch}, {contacts} envs in contact{note}; max |err| "
+          f"{worst}", flush=True)
     print(f"[kernel-vs-plain:{tag}] envs within pos/rot {TOL_POS:g} and vel/ang {TOL_VEL:g}: "
           f"{frac * 100:.3f}% (need >= {MIN_AGREE * 100:.1f}%); all finite: {finite}", flush=True)
     if not finite or frac < MIN_AGREE:
@@ -246,6 +249,18 @@ def phase_contact_info(dev, qp, act):
     if not same or not zero:
         fail("the contact-only Info variant changed the state or kept joint / actuator Info")
     return sys_, qp, act, max_err
+
+
+def phase_ragged(tag: str, sys_, qp, act) -> None:
+    """The first RAGGED envs of a walled batch, against the plain step."""
+    cut = qp.replace(**{f: getattr(qp, f)[:RAGGED].contiguous()
+                        for f in ("pos", "rot", "vel", "ang")})
+    live = live_rows(sys_, cut)
+    compare(f"{tag},B={RAGGED}", sys_, cut, act[:RAGGED].contiguous(),
+            f"; {RAGGED % step_tables.ENVS_PER_BLOCK} envs in the last block; envs with a live "
+            "row: " + ", ".join(f"{k} {v}" for k, v in live.items()))
+    if live.get("capsule_box", 0) == 0:
+        fail(f"{tag}: the ragged batch touched no wall")
 
 
 def live_rows(sys_, qp) -> dict:
@@ -370,13 +385,15 @@ def main() -> None:
     print(f"[card] {card}; torch device: {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    phase_build()
+    warps = phase_build(dev)
     compared = {"ant_tag": phase_kernel_vs_plain(dev)}
     for name in STOCK_WARM_STEPS:
         compared[name] = phase_stock_kernel_vs_plain(dev, name)
     for name in PO_MAIN:
         compared[name] = phase_po_kernel_vs_plain(dev, name)
     compared[CONTACT] = phase_contact_info(dev, *compared["ant_tag"][1:3])
+    for name in ("ant_tag", "ant_maze"):
+        phase_ragged(name, *compared[name][:3])
     for path in FIXTURES:
         phase_fixture(dev, path)
     launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
@@ -394,17 +411,20 @@ def main() -> None:
     entries = []
     for name, (sys_, qp, act, max_err) in compared.items():
         kernel_ms = cuda_ms(lambda: whole_step.launch(sys_, qp, act), reps=50)
-        plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=5, warmup=1)
+        kernel_dev_ms = device_ms(lambda: whole_step.launch(sys_, qp, act))
+        plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=5)
         bound, bound_by = whole_step.bound_ms(sys_, B)
-        print(f"[times:{name}] one control step at B={B}: kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); {card}", flush=True)
+        print(f"[times:{name}] one control step at B={B}: kernel {kernel_ms:.4f} ms per launch "
+              f"(device {kernel_dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({bound_by}), {bound / kernel_dev_ms:.4f} of the bound; {warps[name]} warps per "
+              f"SM; {card}", flush=True)
         entries.append({
             "name": f"whole_step[{name}]", "route": "cuda",
             "source": "pobrax_tpu_torch/csrc/whole_step.cu",
             "replaces": "pobrax_tpu/physics/pallas_step.py:119",
             "launches": launches[name], "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None})
+            "library_ms": None, "warps_per_sm": warps[name], "device_ms": kernel_dev_ms})
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

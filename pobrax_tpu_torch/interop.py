@@ -11,6 +11,9 @@ QPs (`first_qp`) or `EvalMetrics` (`eval_metrics`) keep their type; the other
 entries (keys, the exploration wrapper's grids, gather's metrics) are
 tensors or dicts of them.
 
+Both entry points run on the card unless the caller names another device
+(`device.resolve`): with no device and no GPU they raise.
+
 Nothing here imports jax: the leaves are read as numpy arrays.
 """
 
@@ -22,6 +25,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.envs.base import State
 from pobrax_tpu_torch.envs.wrappers import EvalMetrics
 from pobrax_tpu_torch.physics.state import QP
@@ -55,7 +59,9 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def qp_from_numpy(qp: Any, device=None) -> QP:
-    """A QP-shaped object with numpy-convertible leaves -> the port's QP."""
+    """A QP-shaped object with numpy-convertible leaves -> the port's QP on
+    `device` (the card unless the caller names another)."""
+    device = resolve(device)
     return QP(**{f: _tensor(_get(qp, f), device) for f in _QP_FIELDS})
 
 
@@ -71,8 +77,10 @@ def _leaf_from_numpy(x, device):
 
 def state_from_numpy(state: Any, device=None) -> State:
     """A State-shaped object (qp, obs, reward, done, metrics, info) -> the
-    port's State on `device`. Info entries that are QPs (`first_qp`) become
-    QPs; uint32 key arrays become int64 keys."""
+    port's State on `device` (the card unless the caller names another).
+    Info entries that are QPs (`first_qp`) become QPs; uint32 key arrays
+    become int64 keys."""
+    device = resolve(device)
     return State(**{f: _leaf_from_numpy(_get(state, f), device) for f in _STATE_FIELDS})
 
 

@@ -4,15 +4,29 @@ Replaces the TPU's Pallas whole-step kernel
 (`pobrax_tpu/physics/pallas_step.py::make_pallas_batched_step`, the
 `pl.pallas_call` at pallas_step.py:119): one full control step — every
 substep of joints, actuators, integration and contacts, plus the Info sums —
-in one launch, one thread per environment. The CUDA source is
-`csrc/whole_step.cuh` (the per-env step, also built for the host by the
-tests) and `csrc/whole_step.cu` (the kernel and its C launch function).
+in one launch. The CUDA source is `csrc/whole_step.cuh` (the per-env step as
+phases over an env's lanes, also built for the host by the tests) and
+`csrc/whole_step.cu` (the kernel and its C launch function).
+
+What bounds it, and the design. The step is operation-bound on every
+contact-heavy System (`cost`, `bound_ms`), but what sets its pace is
+latency: a chain of dependent arithmetic per env. The kernel therefore runs
+each env on 16 lanes of a warp (two envs per warp, ENVS_PER_BLOCK per
+block), so 4096 envs give 2048 warps, one wave at 16 warps per SM, and each
+SM switches between many. Lane i owns slot i: the body's state, Info sums
+and accumulators stay in its registers. Joints, thrusters and contact rows
+are spread over the lanes, which write one result record each into the
+env's scratch in shared memory; owner lanes then gather their records in the
+order fused.py adds them (`step_tables.pack`), so the sums are fused.py's.
+The System's tables are staged in shared memory once per block.
 
 `whole_step(sys, qp, act)` is the wrapper `System.step` calls. On CPU
 tensors it runs the plain version, `System.step_generic`; on CUDA tensors it
-launches the kernel or raises — there is no fallback. The public layout stays
-batch-first, as the JAX wrapper's was at its boundary; each thread reads its
-env's contiguous (n, 3) / (n, 4) slices directly.
+launches the kernel or raises — there is no fallback. A System whose tables
+and scratch do not fit one block's shared memory raises ValueError before the
+launch. The public layout stays batch-first, as the JAX wrapper's was at its
+boundary; each env's lanes read and write its contiguous (n, 3) / (n, 4)
+slices lane by lane.
 
 The kernel is built at first use with nvcc into `build/` at the root of the
 checkout, as a shared library with a plain C interface loaded by ctypes
@@ -35,6 +49,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from pobrax_tpu_torch.physics import step_tables
@@ -97,6 +112,9 @@ def _check_layout(lib: ctypes.CDLL) -> None:
     if list(got[:n]) != want:
         raise RuntimeError(f"whole-step kernel: table layout {list(got[:n])} in the library "
                            f"!= {want} in step_tables.py")
+    if lib.ws_envs_per_block() != step_tables.ENVS_PER_BLOCK:
+        raise RuntimeError(f"whole-step kernel: {lib.ws_envs_per_block()} envs per block in the "
+                           f"library != {step_tables.ENVS_PER_BLOCK} in step_tables.py")
 
 
 def load_library() -> ctypes.CDLL:
@@ -105,9 +123,12 @@ def load_library() -> ctypes.CDLL:
     if _lib is None:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
-        lib.ws_whole_step.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+        lib.ws_whole_step.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
                                       + [ctypes.c_void_p] * 15 + [ctypes.c_void_p])
         lib.ws_whole_step.restype = ctypes.c_int
+        lib.ws_resident_warps.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.ws_resident_warps.restype = ctypes.c_int
+        lib.ws_envs_per_block.restype = ctypes.c_int
         lib.ws_layout_words.argtypes = [ctypes.c_void_p]
         lib.ws_layout_words.restype = ctypes.c_int
         _check_layout(lib)
@@ -115,13 +136,58 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+def _tables(sys) -> Dict:
+    """The System's step tables, built once: the packed buffer on the host
+    ("host"), its per-env scratch words and the shared memory one block
+    needs, and the buffer on each device it was launched on."""
+    cache: Dict = sys._step_tables or {}
+    if "host" not in cache:
+        buf = step_tables.pack(step_tables.build(sys))
+        cache.update(host=buf, scratch_words=step_tables.scratch_words(buf),
+                     shared_bytes=step_tables.shared_bytes(buf))
+        sys._step_tables = cache
+    return cache
+
+
+def packed_tables(sys) -> np.ndarray:
+    """The System's packed constant tables on the host, built once."""
+    return _tables(sys)["host"]
+
+
+def shared_bytes(sys) -> int:
+    """Shared memory one block of the kernel needs for `sys`: its tables
+    plus one scratch for each of the block's envs."""
+    return _tables(sys)["shared_bytes"]
+
+
+def check_fits(sys) -> Dict:
+    """The step tables of `sys` (`_tables`); raises ValueError for a System
+    the kernel cannot hold (more than MAX_BODIES touched bodies, or more
+    shared memory than one block has)."""
+    cache = _tables(sys)
+    if cache["shared_bytes"] > step_tables.SHARED_LIMIT:
+        raise ValueError(f"whole-step kernel: the System needs {cache['shared_bytes']} bytes of "
+                         f"shared memory a block (tables + {step_tables.ENVS_PER_BLOCK} env "
+                         f"scratches), more than the {step_tables.SHARED_LIMIT} an H100 block has")
+    return cache
+
+
 def device_tables(sys, device: torch.device) -> torch.Tensor:
     """The System's packed constant tables on `device`, built once."""
-    cache: Dict = sys._step_tables or {}
+    cache = _tables(sys)
     if device not in cache:
-        cache[device] = torch.from_numpy(step_tables.pack(step_tables.build(sys))).to(device)
-        sys._step_tables = cache
+        cache[device] = torch.from_numpy(cache["host"]).to(device)
     return cache[device]
+
+
+def resident_warps(sys) -> int:
+    """Warps of the kernel one SM holds at once for `sys` (registers and the
+    System's shared memory permitting), from the CUDA occupancy calculator."""
+    warps = ctypes.c_int(0)
+    err = load_library().ws_resident_warps(shared_bytes(sys), ctypes.byref(warps))
+    if err != 0:
+        raise RuntimeError(f"whole-step kernel: occupancy query failed with CUDA error {err}")
+    return warps.value
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -148,11 +214,12 @@ def launch(sys, qp: QP, act: torch.Tensor) -> Tuple[QP, Info]:
     """Launch the kernel on CUDA tensors: pos/vel/ang (B, n, 3), rot (B, n, 4),
     act (B, action_size), all float32 and contiguous."""
     global launches
+    cache = check_fits(sys)  # raises ValueError for a System it cannot hold
     dev = qp.pos.device
     if dev.type != "cuda":
         raise ValueError(f"whole-step kernel: tensors must be on a CUDA device, got {dev}")
     B, n = qp.pos.shape[0], sys.num_bodies
-    tables = device_tables(sys, dev)  # raises ValueError for a System it cannot hold
+    tables = device_tables(sys, dev)
     _check("qp.pos", qp.pos, (B, n, 3), dev)
     _check("qp.rot", qp.rot, (B, n, 4), dev)
     _check("qp.vel", qp.vel, (B, n, 3), dev)
@@ -163,8 +230,9 @@ def launch(sys, qp: QP, act: torch.Tensor) -> Tuple[QP, Info]:
     outs = [torch.empty((B, n, k), device=dev) for k in widths]
     ptrs = [o.data_ptr() for o in outs] + [None] * (len(_OUT_WIDTHS) - len(outs))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.ws_whole_step(tables.data_ptr(), B, qp.pos.data_ptr(), qp.rot.data_ptr(),
-                            qp.vel.data_ptr(), qp.ang.data_ptr(), act.data_ptr(), *ptrs, stream)
+    err = lib.ws_whole_step(tables.data_ptr(), cache["host"].size, cache["scratch_words"], B,
+                            qp.pos.data_ptr(), qp.rot.data_ptr(), qp.vel.data_ptr(),
+                            qp.ang.data_ptr(), act.data_ptr(), *ptrs, stream)
     if err != 0:
         raise RuntimeError(f"whole-step kernel launch failed with CUDA error {err}")
     launches += 1
@@ -193,7 +261,11 @@ def unpack(sys, outs) -> Tuple[QP, Info]:
 # compares, selects and negations are not counted. Building blocks: V3
 # add/scale 3, dot 5, cross 9, qmul 28, qrot 30, to_local/to_world 15,
 # quat_mat 39, resolve_a 89, resolve 126 plus 21 (body a) and 24 (body b)
-# for each side that moves.
+# for each side that moves. A row's lane computes its terms and the body's
+# owner lane adds them into its accumulators (the gather), so each piece
+# below counts both halves: the gather adds are the sums the serial loops
+# took, no more. Capsule endpoints are computed once per distinct capsule,
+# by its body's owner lane.
 OPS_JOINT = 252            # frames, spring, damping, force and torque sums
 OPS_JOINT_DOF = 40         # per dof: world axis and limit torque
 OPS_ALIGN = {1: 37, 2: 35, 3: 0}     # alignment torque, by dof
@@ -226,10 +298,11 @@ def _resolve_ops(t: Dict, a: int, b: int) -> int:
 
 def cost(sys, B: int) -> Dict[str, float]:
     """Operations and bytes one launch needs for `B` envs of `sys`: each
-    input read once, each output written once; the kernel is branch-free in
-    the state (its branches follow the tables), so the count does not depend
-    on the data. A body that passes through costs its bytes and no operation;
-    the contact-only variant drops the 12 joint and actuator Info sums per
+    input read once (the tables once, though each block stages its own copy),
+    each output written once; the kernel is branch-free in the state (its
+    branches follow the tables), so the count does not depend on the data.
+    A body that passes through costs its bytes and no operation; the
+    contact-only variant drops the 12 joint and actuator Info sums per
     body and those four arrays, which it does not write."""
     t = step_tables.build(sys)
     n = t["n_bodies"]
@@ -257,13 +330,12 @@ def cost(sys, B: int) -> Dict[str, float]:
         ops += OPS_SS_ROW + _resolve_ops(t, r["a"], r["b"])
     for r in t["cc_rows"]:
         ops += OPS_CC_ROW + _resolve_ops(t, r["a"], r["b"])
+    ops += len(step_tables.capsules(t)) * OPS_CB_CAPSULE
     for r in t["cb_moving"]:
-        ops += (OPS_CB_CAPSULE + OPS_CB_MOVING_ROW
-                + 3 * (OPS_CB_SDF + _resolve_ops(t, r["a"], r["b"])))
+        ops += OPS_CB_MOVING_ROW + 3 * (OPS_CB_SDF + _resolve_ops(t, r["a"], r["b"]))
     if t["cb_vec"]:
         cv = t["cb_vec"]
-        ops += (len(cv["caps"]) * OPS_CB_CAPSULE
-                + int(cv["cap_repeats"].sum()) * (OPS_CB_ROW + 3 * OPS_CB_SAMPLE)
+        ops += (int(cv["cap_repeats"].sum()) * (OPS_CB_ROW + 3 * OPS_CB_SAMPLE)
                 + len(cv["body_slices"]) * OPS_FLUSH)
     ops *= t["substeps"] * B
     words_in = B * (n * (3 + 4 + 3 + 3) + t["n_act"])

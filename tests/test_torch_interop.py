@@ -61,5 +61,22 @@ def test_round_trip_through_numpy():
     for k in s.info:
         if isinstance(s.info[k], torch.Tensor):
             assert torch.equal(s.info[k], s2.info[k]) and s.info[k].dtype == s2.info[k].dtype, k
-    qp = interop.qp_from_numpy({f: getattr(s.qp, f).numpy() for f in ("pos", "rot", "vel", "ang")})
+    qp = interop.qp_from_numpy({f: getattr(s.qp, f).numpy() for f in ("pos", "rot", "vel", "ang")},
+                               device="cpu")
     assert torch.equal(qp.rot, s.qp.rot)
+
+
+def test_no_device_means_the_card():
+    """Like `create`, the crossings default to the card: with no device named
+    and no GPU they raise rather than land on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    env = create("ant_tag", batch_size=2, device="cpu")
+    from pobrax_tpu_torch import random as jr
+    s = interop.state_to_numpy(env.reset(jr.PRNGKey(1)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.qp_from_numpy(s["qp"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.state_from_numpy(s)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create("ant_tag", batch_size=2)

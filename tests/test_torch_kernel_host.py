@@ -12,8 +12,11 @@ with ants against their walls, AntGather's 16 pass-through bodies bit-equal),
 on tests/test_fused.py's 2-dof + servo system and its mini system (every row
 kind, a thruster), over a 20-step humanoid rollout against the JAX package,
 and in the contact-only Info variant (bit-equal to the full one in state and
-contact Info, and against the JAX fused step under POBRAX_INFO=contact). No
-entry point of the package loads this build. Skips where g++ is missing.
+contact Info, and against the JAX fused step under POBRAX_INFO=contact). The
+host build emulates an env's 16 lanes by running each phase for lanes 0..15
+in turn; run backwards instead, every result must come out bit-equal, which
+is how a race between the lanes of one phase would show here. No entry point
+of the package loads this build. Skips where g++ is missing.
 """
 
 import ctypes
@@ -46,6 +49,8 @@ _WIDTHS = (3, 4, 3, 3, 3, 3, 3, 3, 3, 3)
 
 @pytest.fixture(scope="module")
 def host_lib():
+    """The host build of csrc/whole_step_host.cpp with g++, cached in build/
+    by a hash of the sources."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of the kernel's per-env step needs it")
@@ -56,27 +61,30 @@ def host_lib():
     if not out.exists():
         whole_step.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp), str(src)],
-                       check=True, capture_output=True)
+        subprocess.run([gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp),
+                        str(src)], check=True, capture_output=True)
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
-    lib.ws_whole_step_host.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15
+    lib.ws_whole_step_host.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 15
+                                       + [ctypes.c_int])
     lib.ws_whole_step_host.restype = ctypes.c_int
     lib.ws_layout_words.argtypes = [ctypes.c_void_p]
     return lib
 
 
-def host_step(lib, sys_, qp, act):
-    """One control step through the host build of the kernel's code. The
-    outputs start as NaN, so a value the kernel fails to write shows; with
-    contact Info only, the joint and actuator pointers are null."""
+def host_step(lib, sys_, qp, act, reversed_lanes=False):
+    """One control step through the host build of the kernel's code, each
+    phase's lanes run in turn, forwards (or backwards). The outputs start as NaN, so a value
+    the kernel fails to write shows; with contact Info only, the joint and
+    actuator pointers are null."""
     tables = step_tables.pack(step_tables.build(sys_))
     B, n = qp.pos.shape[0], sys_.num_bodies
     ins = [x.contiguous() for x in (qp.pos, qp.rot, qp.vel, qp.ang, act)]
     widths = _WIDTHS[:6] if sys_.info_mode == "contact" else _WIDTHS
     outs = [torch.full((B, n, k), float("nan")) for k in widths]
     ptrs = [o.data_ptr() for o in outs] + [None] * (len(_WIDTHS) - len(outs))
-    lib.ws_whole_step_host(tables.ctypes.data, B, *[x.data_ptr() for x in ins], *ptrs)
+    assert lib.ws_whole_step_host(tables.ctypes.data, B, *[x.data_ptr() for x in ins], *ptrs,
+                                  int(reversed_lanes)) == 0
     return whole_step.unpack(sys_, outs)
 
 
@@ -130,6 +138,35 @@ def test_host_kernel_matches_plain_step(host_lib, case):
     qp = _state(env, case)
     act = torch.rand(qp.pos.shape[0], 8, generator=torch.Generator().manual_seed(1)) * 2 - 1
     assert_close(host_step(host_lib, env.sys, qp, act), env.sys.step_generic(qp, act))
+
+
+@pytest.mark.parametrize("name", ["ant_tag", "ant_maze", "grasp", "humanoid"])
+def test_host_kernel_lanes_reversed_are_bit_equal(host_lib, name):
+    """Each phase's lanes run backwards instead of forwards. Every lane writes only
+    its own records and owners read only after the phase that wrote them, so
+    the results must be bit-equal; a phase in which two lanes write the same
+    scratch word, or one lane reads a word another lane writes, would differ
+    here, a race the card would show only sometimes. AntTag and the maze
+    against walls (capsule-box rows live), grasp with its Object on a finger
+    (two-body capsule-capsule rows live), humanoid (2- and 3-dof joints)."""
+    if name == "ant_tag":
+        env = AntTagEnv(device="cpu")
+        sys_, qp = env.sys, _state(env, "wall")
+        act = torch.rand(qp.pos.shape[0], 8, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    elif name == "ant_maze":
+        env, qp, act = po_state(name)
+        sys_ = env.sys
+    else:
+        sys_, qp, act = stock_state(name)
+    (q, i), (q_rev, i_rev) = (host_step(host_lib, sys_, qp, act, reversed_lanes=r)
+                              for r in (False, True))
+    for f in ("pos", "rot", "vel", "ang"):
+        assert bool(torch.isfinite(getattr(q, f)).all()), f
+        assert torch.equal(getattr(q, f), getattr(q_rev, f)), f
+    for part in ("contact", "joint", "actuator"):
+        for f in ("vel", "ang"):
+            assert torch.equal(getattr(getattr(i, part), f), getattr(getattr(i_rev, part), f))
+    assert float(i.contact.vel.abs().max()) > 0, "contacts must be live"
 
 
 def test_host_kernel_replays_fixture(host_lib, monkeypatch):

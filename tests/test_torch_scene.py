@@ -131,17 +131,23 @@ def test_packed_tables_layout(pair):
     buf = step_tables.pack(t)
     # 11 slots: the frozen Target sphere, which no row names, passes through
     assert t["pass_through"] == [tsys.body.index["Target"]]
-    want = (step_tables.words(step_tables.HEADER) + 11 * step_tables.words(step_tables.BODY)
-            + 8 * step_tables.words(step_tables.JOINT)
-            + 9 * step_tables.words(step_tables.POINT_PLANE)
-            + 36 * step_tables.words(step_tables.CAPSULE_BOX)
-            + 1 * step_tables.words(step_tables.PASS_THROUGH))
-    assert buf.dtype == np.float32 and buf.size == want
+    n_gather = int(buf[:step_tables.words(step_tables.HEADER)].view(np.int32)[12])
+    tables = (step_tables.words(step_tables.HEADER) + 11 * step_tables.words(step_tables.BODY)
+              + 8 * step_tables.words(step_tables.JOINT)
+              + 9 * step_tables.words(step_tables.POINT_PLANE)
+              + 36 * step_tables.words(step_tables.CAPSULE_BOX)
+              + 9 * step_tables.words(step_tables.CAPSULE))
+    # then each body's slot, and the gather entries
+    assert buf.dtype == np.float32 and buf.size == tables + 12 + n_gather
     header = buf[:step_tables.words(step_tables.HEADER)].view(np.int32)
     # bodies, slots, contact-only Info, actions, substeps, joints, thrusters,
-    # pp, ss, cc, cb rows
-    assert list(header[:11]) == [12, 11, 0, 8, 10, 8, 0, 9, 0, 0, 36]
-    assert buf[-1:].view(np.int32)[0] == tsys.body.index["Target"]
+    # pp, ss, cc, cb rows, capsules; gather entries: two sides of each of the
+    # 8 joints, one flush per body with point-plane rows (5) and per capsule
+    # body with capsule-box rows (9)
+    assert list(header[:13]) == [12, 11, 0, 8, 10, 8, 0, 9, 0, 0, 36, 9, 16 + 5 + 9]
+    slot_of = buf[tables:tables + 12].view(np.int32)
+    assert slot_of[tsys.body.index["Target"]] == -1
+    assert sorted(slot_of[slot_of >= 0]) == list(range(11))
 
 
 def _feature_scene(kind):

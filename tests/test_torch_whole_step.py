@@ -6,6 +6,7 @@ Imports no jax, so the card tests run on a machine with only PyTorch:
 The `cuda` tests skip where `torch.cuda.is_available()` is false.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -54,7 +55,7 @@ def test_cost_of_ant_tag_is_operation_bound():
     sys_ = AntTagEnv(device="cpu").sys
     cost = whole_step.cost(sys_, 4096)
     # state + act in, state + six Info arrays out, float32, plus the tables
-    assert cost["bytes"] == 4 * 4096 * (12 * 13 + 8 + 12 * 31) + 4 * 1795
+    assert cost["bytes"] == 4 * 4096 * (12 * 13 + 8 + 12 * 31) + 4 * 1834
     assert cost["flops"] > 1e9
     ms, by = whole_step.bound_ms(sys_, 4096)
     assert by == "operations" and 0.01 < ms < 0.03
@@ -109,6 +110,85 @@ def test_kernel_matches_plain_on_card(cuda):
     assert float(agree.float().mean()) >= 0.995
     for t in (qk.pos, qk.rot, qk.vel, qk.ang, ik.contact.vel, ik.joint.ang):
         assert bool(torch.isfinite(t).all())
+
+
+def _agree(qk, qg):
+    err = lambda a, b: (a - b).abs().flatten(1).max(1).values
+    return ((err(qk.pos, qg.pos) <= 1e-5) & (err(qk.rot, qg.rot) <= 1e-5)
+            & (err(qk.vel, qg.vel) <= 1e-3) & (err(qk.ang, qg.ang) <= 1e-3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 5, 4095])
+def test_ragged_batch_on_card(cuda, B):
+    """Batches that leave the last block partly idle (the block holds
+    ENVS_PER_BLOCK envs, two per warp): a warp with no env leaves, the idle
+    half of a warp steps along and stores nothing, every env is written and
+    agrees with the plain step; 256 of the 4095 ants lean on an arena wall."""
+    env = AntTagEnv(device=cuda)
+    qp, act = _batch(env, B, 30, cuda)
+    if B > 256:
+        pos = qp.pos.clone()
+        pos[:256, env.ant_slice, 0] += 5.15 - pos[:256, env.torso_idx:env.torso_idx + 1, 0]
+        qp = qp.replace(pos=pos)
+        assert bool((env.sys.contacts._capsule_box(qp)[4] > 0).any())
+    assert B % step_tables.ENVS_PER_BLOCK != 0 or B == 1
+    qk, ik = whole_step.launch(env.sys, qp, act)
+    qg, _ = env.sys.step_generic(qp, act)
+    torch.cuda.synchronize()
+    assert float(_agree(qk, qg).float().mean()) >= 0.995
+    for t in (qk.pos, qk.rot, qk.vel, qk.ang, ik.contact.vel, ik.joint.ang):
+        assert bool(torch.isfinite(t).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ant_tag", "ant_maze", "humanoid"])
+def test_resident_warps_on_card(cuda, name):
+    """At least 16 warps (32 envs) per SM, so that each of the SM's four
+    schedulers has warps to switch between, and 4096 envs fit one wave."""
+    assert whole_step.resident_warps(create(name, device=cuda).sys) >= 16
+
+
+def many_spheres(n):
+    """Two bodies of n spheres each that collide: n * n sphere-sphere rows."""
+    balls = tuple(c.Collider(geom=c.Sphere(0.1), position=(0.01 * k, 0.0, 0.0))
+                  for k in range(n))
+    return c.Config(bodies=(c.Body(name="a", colliders=balls), c.Body(name="b", colliders=balls)),
+                    collide_include=(("a", "b"),))
+
+
+def overlapping(sys_, B, seed, device):
+    """Both bodies at the origin, jittered by 3 cm so their spheres overlap
+    with well-defined normals, with random velocities and actions."""
+    rs = np.random.RandomState(seed)
+    qp0 = sys_.default_qp()
+    n = sys_.num_bodies
+    as_t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    qp = qp0.replace(pos=qp0.pos + as_t(0.03 * rs.randn(B, n, 3)),
+                     rot=qp0.rot.expand(B, n, 4).contiguous(),
+                     vel=as_t(0.3 * rs.randn(B, n, 3)), ang=as_t(0.3 * rs.randn(B, n, 3)))
+    return qp, as_t(rs.uniform(-1, 1, (B, sys_.action_size)))
+
+
+@pytest.mark.cuda
+def test_kernel_above_48_kb_of_shared_memory_on_card(cuda):
+    """15 x 15 = 225 two-body rows: a block needs more than the 48 KB of
+    shared memory a kernel gets by default, so the launch first lifts the
+    kernel's limit (cudaFuncSetAttribute). The occupancy calculator then
+    finds at least one block a SM, and the step agrees with the plain one."""
+    sys_ = System(many_spheres(15), device=cuda)
+    assert 48 * 1024 < whole_step.shared_bytes(sys_) <= step_tables.SHARED_LIMIT
+    qp, act = overlapping(sys_, 1001, 3, cuda)
+    before = whole_step.launches
+    qk, ik = whole_step.launch(sys_, qp, act)
+    qg, ig = sys_.step_generic(qp, act)
+    torch.cuda.synchronize()
+    assert whole_step.launches == before + 1
+    assert bool((ig.contact.vel.abs().flatten(1).max(1).values > 0).all()), "contacts live"
+    assert float(_agree(qk, qg).float().mean()) >= 0.995
+    for t in (qk.pos, qk.rot, qk.vel, qk.ang, ik.contact.vel):
+        assert bool(torch.isfinite(t).all())
+    assert whole_step.resident_warps(sys_) >= 4
 
 
 @pytest.mark.cuda
