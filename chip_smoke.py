@@ -49,6 +49,28 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      two differ where the wrapper's host work per launch outlasts the
      kernel, on the small Systems), and the bound; the timing helpers are
      time_kernel.py's.
+  7. GRU-PPO trains AntTag at full width: `ppo_rnn.train` on
+     `AntTagEnv` with examples/train_ant_tag_rnn.py's recipe
+     (`ppo_rnn.ANT_TAG`: 2048 envs, episode 1000, action_repeat 6, unroll
+     32, 8 minibatches, 4 update epochs, lr 3e-4, entropy 3e-3, discount
+     0.97, encoder (256,), hidden 128), `autoreset_mode="cached"`, 3
+     epochs; per epoch the wall ms, the
+     rollout / update split, the whole-step launches (one per control step:
+     32, action_repeat folds into the kernel's 60 substeps), env-steps/s
+     and the losses; fails on a non-finite loss, unchanged parameters or
+     another launch count. Before it the kernel is held against the plain
+     step on the action_repeat=6 System at the learners' batches (2048,
+     4096, 256);
+  8. feed-forward PPO trains AntTag at full width: `ppo.train` with
+     examples/train_ant_tag.py's recipe (`ppo.ANT_TAG`: 4096 envs,
+     action_repeat 6, unroll 16, 32 minibatches, 4 update epochs, policy
+     32x4, value 256x5), cached, 2 epochs; the same prints and checks (16
+     launches an epoch);
+  9. the committed checkpoint on the card: pobrax_tpu_torch/checkpoints/
+     ant_tag_rnn_900M.npz loaded through `interop` (its parameters' checksum
+     must equal the stored one), then the deterministic tag rate on 256
+     episodes of the true AntTag (`eval_tag_checkpoint.tag_rate_rnn`), which
+     must reach 0.95 (the JAX replay reads 0.9922), and the stochastic one.
 Then one JSON line with an entry per System (with its resident warps per
 SM), the card's name and power limit, and the last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before that
@@ -66,12 +88,14 @@ import time
 import numpy as np
 import torch
 
+from pobrax_tpu_torch import eval_tag_checkpoint
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.masks import VELOCITY
 from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
+from pobrax_tpu_torch.training import ppo, ppo_rnn
 from time_kernel import card_line, cuda_ms, device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -108,6 +132,12 @@ PO_WARM_STEPS = {"ant_heavenhell": 20, "ant_maze": 20, "ant_gather": 50}
 PO_WALLS = {"ant_heavenhell": (0, 1.65), "ant_maze": (1, 1.4)}
 CONTACT = "ant_tag,info=contact"  # AntTag's System with contact Info only
 RAGGED = 4095  # a batch that leaves the last block one env short
+# the learners' System: AntTag under ActionRepeat(6), 60 substeps a launch
+LEARNER = "ant_tag,action_repeat=6"
+ACTION_REPEAT = 6
+LEARNER_BATCHES = (2048, 4096, 256)  # GRU-PPO, PPO, the checkpoint evaluation
+GRU_EPOCHS, PPO_EPOCHS = 3, 2  # at ppo_rnn.ANT_TAG's and ppo.ANT_TAG's recipes
+MIN_TAG_RATE = 0.95  # the JAX replay of the checkpoint reads 0.9922
 
 
 def fail(msg: str) -> None:
@@ -132,6 +162,8 @@ def phase_build(dev) -> dict:
               f"({step_tables.ENVS_PER_BLOCK} envs), {warps[name]} resident warps per SM",
               flush=True)
     warps[CONTACT] = warps["ant_tag"]
+    warps[LEARNER] = whole_step.resident_warps(
+        create("ant_tag", action_repeat=ACTION_REPEAT, device=dev).sys)
     if min(warps.values()) < 16:
         fail("fewer than 16 resident warps per SM")
     return warps
@@ -140,7 +172,7 @@ def phase_build(dev) -> dict:
 def plain_steps(sys_, qp, steps: int, g):
     """`steps` plain steps of random actions drawn from generator `g`."""
     for _ in range(steps):
-        qp, _ = sys_.step_generic(qp, torch.rand(B, sys_.action_size, generator=g,
+        qp, _ = sys_.step_generic(qp, torch.rand(qp.pos.shape[0], sys_.action_size, generator=g,
                                                  device=qp.pos.device) * 2 - 1)
     return qp
 
@@ -188,13 +220,13 @@ def phase_kernel_vs_plain(dev):
     return sys_, qp, act, max_err
 
 
-def push_ants(core, qp, axis: int, value: float):
-    """`qp` with the ant's 9 bodies in the first WALL_ENVS envs shifted along
+def push_ants(core, qp, axis: int, value: float, count: int = WALL_ENVS):
+    """`qp` with the ant's 9 bodies in the first `count` envs shifted along
     `axis` so that the torso's coordinate is `value`."""
     ant = [core.sys.body.index[n] for n in ANT_BODY_NAMES]
     pos = qp.pos.clone()
-    shift = value - pos[:WALL_ENVS, core.torso_idx, axis]
-    pos[:WALL_ENVS, ant[0]:ant[-1] + 1, axis] += shift[:, None]
+    shift = value - pos[:count, core.torso_idx, axis]
+    pos[:count, ant[0]:ant[-1] + 1, axis] += shift[:, None]
     return qp.replace(pos=pos)
 
 
@@ -376,6 +408,123 @@ def phase_main(dev, name: str, mode: str, card: str, steps: int = MAIN_STEPS,
     return launches
 
 
+def phase_learner_kernel_vs_plain(dev):
+    """Kernel against plain on the learners' System (AntTag, ActionRepeat(6))
+    at each batch the learner paths give it, from a reset plus 3 plain steps
+    with a sixteenth of the ants against the +x wall (phase 3's share, 256
+    of 4096). Returns the B=2048 inputs."""
+    out = None
+    for batch in LEARNER_BATCHES:
+        env = create("ant_tag", episode_length=None, action_repeat=ACTION_REPEAT,
+                     auto_reset=False, batch_size=batch, device=dev)
+        sys_ = env.sys
+        qp = env.reset(jr.PRNGKey(5, dev)).qp
+        g = torch.Generator(device=dev).manual_seed(5)
+        qp = push_ants(env.unwrapped, plain_steps(sys_, qp, 3, g), 0, WALL_TORSO_X,
+                       batch * WALL_ENVS // B)
+        act = torch.rand(batch, sys_.action_size, generator=g, device=dev) * 2 - 1
+        walled = int((sys_.contacts._capsule_box(qp)[4] > 0).any(-1).sum())
+        max_err = compare(f"{LEARNER},B={batch}", sys_, qp, act,
+                          f", {walled} against a wall, {sys_.config.substeps} substeps")
+        if walled == 0:
+            fail(f"{LEARNER},B={batch}: no env touched a wall")
+        if out is None:
+            out = (sys_, qp, act, max_err)
+    return out
+
+
+def params_vector(module) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
+
+
+def phase_train(dev, card: str, kind: str) -> int:
+    """Trains AntTag with `ppo_rnn.train` ("gru") or `ppo.train` ("ppo") at
+    the examples' recipes, cached autoreset; prints and checks each epoch.
+    Returns the whole-step launches of the run."""
+    rnn = kind == "gru"
+    module, epochs = (ppo_rnn, GRU_EPOCHS) if rnn else (ppo, PPO_EPOCHS)
+    cfg = module.ANT_TAG
+    steps_per_epoch = cfg.unroll_length * cfg.num_envs * cfg.action_repeat
+    # the initial parameters, as train() makes them from the seed
+    probe = (ppo_rnn.RNNPPOLearner if rnn else ppo.PPOLearner)(
+        ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached"), cfg)
+    k_init = jr.split(jr.PRNGKey(0, dev), 3)[1]
+    initial = probe.make_params(k_init)
+    initial = params_vector(initial if rnn else initial.policy)
+    rows = []
+    last = [time.perf_counter(), 0]
+
+    def progress(steps, m):
+        now = time.perf_counter()
+        launched = whole_step.launches - last[1]
+        rows.append({"wall_ms": (now - last[0]) * 1e3, "launches": launched, **m})
+        last[:] = [now, whole_step.launches]
+        r = rows[-1]
+        print(f"[train:{kind}] epoch {len(rows)}: wall {r['wall_ms']:.1f} ms (rollout "
+              f"{m['rollout_ms']:.1f} ms, update {m['update_ms']:.1f} ms), whole-step launches "
+              f"{launched}, {steps_per_epoch / (r['wall_ms'] / 1e3):.1f} env-steps/s; "
+              f"total_loss {m['total_loss']:.6f}, policy_loss {m['policy_loss']:.6f}, "
+              f"value_loss {m['value_loss']:.6f}, entropy {m['entropy']:.6f}, mean_reward "
+              f"{m['mean_reward']:.6f}; {card}", flush=True)
+
+    torch.cuda.synchronize()
+    whole_step.launches = 0
+    last[:] = [time.perf_counter(), 0]
+    _, params, _ = module.train(AntTagEnv(device=dev), cfg, seed=0, progress_fn=progress,
+                                autoreset_mode="cached", num_timesteps=epochs * steps_per_epoch)
+    torch.cuda.synchronize()
+    launches = whole_step.launches
+    final = params_vector(params[1])
+    changed = float((final - initial).abs().max())
+    warm = rows[1:] or rows  # the first epoch also builds and warms up
+    print(f"[train:{kind}] {len(rows)} epochs of {cfg.num_envs} envs; whole-step launches "
+          f"{launches}; largest parameter change {changed:.6e}; env-steps/s after the first "
+          f"epoch {steps_per_epoch * len(warm) / sum(r['wall_ms'] / 1e3 for r in warm):.1f}",
+          flush=True)
+    if len(rows) != epochs:
+        fail(f"{kind}: {len(rows)} epochs ran, not {epochs}")
+    for r in rows:
+        if r["launches"] != cfg.unroll_length:
+            fail(f"{kind}: an epoch launched the kernel {r['launches']} times, not "
+                 f"{cfg.unroll_length} (one per control step)")
+        if not all(np.isfinite(r[k]) for k in ("total_loss", "policy_loss", "value_loss",
+                                                "entropy")):
+            fail(f"{kind}: a non-finite loss")
+    if not np.isfinite(changed) or changed == 0.0:
+        fail(f"{kind}: the parameters did not change")
+    return launches
+
+
+def phase_checkpoint(dev, card: str) -> int:
+    """The committed AntTag checkpoint through `interop` on the card: the
+    checksum, then the deterministic (gated) and stochastic tag rates.
+    Returns the deterministic replay's whole-step launches."""
+    learner, ts, same = eval_tag_checkpoint.load(device=dev)
+    print(f"[checkpoint] {os.path.relpath(eval_tag_checkpoint.DEFAULT_NPZ, ROOT)}: epochs "
+          f"{ts.epochs}, Adam count {ts.opt_state.count}, parameters' checksum equal to the "
+          f"stored one: {same}", flush=True)
+    if not same:
+        fail("the loaded checkpoint's parameters do not match their checksum")
+    inference_fn, params = learner.make_inference_fn(), (ts.normalizer, ts.params)
+    rates = {}
+    for name, seed, det in (("det", 0, True), ("stoch", 1, False)):
+        torch.cuda.synchronize()
+        whole_step.launches = 0
+        t0 = time.perf_counter()
+        rates[name] = eval_tag_checkpoint.tag_rate_rnn(
+            AntTagEnv(device=dev), inference_fn, params, eval_tag_checkpoint.HIDDEN,
+            seed=seed, action_repeat=ACTION_REPEAT, deterministic=det)
+        launches = whole_step.launches
+        if name == "det":
+            det_launches = launches
+        print(f"[checkpoint] true tag rate {name} {rates[name]:.4f} on 256 episodes in "
+              f"{time.perf_counter() - t0:.3f} s, whole-step launches {launches}; {card}",
+              flush=True)
+    if not rates["det"] >= MIN_TAG_RATE:
+        fail(f"the checkpoint's deterministic tag rate {rates['det']} is below {MIN_TAG_RATE}")
+    return det_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -394,6 +543,7 @@ def main() -> None:
     compared[CONTACT] = phase_contact_info(dev, *compared["ant_tag"][1:3])
     for name in ("ant_tag", "ant_maze"):
         phase_ragged(name, *compared[name][:3])
+    compared[LEARNER] = phase_learner_kernel_vs_plain(dev)
     for path in FIXTURES:
         phase_fixture(dev, path)
     launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
@@ -407,14 +557,17 @@ def main() -> None:
     launches["ant_gather"] += phase_main(dev, "ant_gather", "naive", card, steps=OTHER_STEPS)
     launches[CONTACT] = phase_main(dev, "ant_tag", "cached", card, steps=OTHER_STEPS,
                                    info="contact")
+    launches[LEARNER] = (phase_train(dev, card, "gru") + phase_train(dev, card, "ppo")
+                         + phase_checkpoint(dev, card))
 
     entries = []
     for name, (sys_, qp, act, max_err) in compared.items():
         kernel_ms = cuda_ms(lambda: whole_step.launch(sys_, qp, act), reps=50)
         kernel_dev_ms = device_ms(lambda: whole_step.launch(sys_, qp, act))
         plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=5)
-        bound, bound_by = whole_step.bound_ms(sys_, B)
-        print(f"[times:{name}] one control step at B={B}: kernel {kernel_ms:.4f} ms per launch "
+        batch = qp.pos.shape[0]
+        bound, bound_by = whole_step.bound_ms(sys_, batch)
+        print(f"[times:{name}] one control step at B={batch}: kernel {kernel_ms:.4f} ms per launch "
               f"(device {kernel_dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
               f"({bound_by}), {bound / kernel_dev_ms:.4f} of the bound; {warps[name]} warps per "
               f"SM; {card}", flush=True)

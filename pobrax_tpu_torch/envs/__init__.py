@@ -19,6 +19,7 @@ from pobrax_tpu_torch.envs.ant_heavenhell import AntHeavenHellEnv
 from pobrax_tpu_torch.envs.ant_maze import AntMazeEnv
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.base import Env, State, Wrapper
+from pobrax_tpu_torch.envs.fast import Fast
 from pobrax_tpu_torch.envs.fetch import Fetch
 from pobrax_tpu_torch.envs.grasp import Grasp
 from pobrax_tpu_torch.envs.humanoid import Humanoid, HumanoidStandup
@@ -32,6 +33,7 @@ _envs = {
     "ant_heavenhell": AntHeavenHellEnv,
     "ant_gather": AntGatherEnv,
     "ant_maze": AntMazeEnv,
+    "fast": Fast,
     "fetch": Fetch,
     "grasp": Grasp,
     "humanoid": Humanoid,
@@ -97,7 +99,7 @@ def create(
     return env
 
 
-__all__ = ["AntGatherEnv", "AntHeavenHellEnv", "AntMazeEnv", "AntTagEnv", "Env", "Fetch",
+__all__ = ["AntGatherEnv", "AntHeavenHellEnv", "AntMazeEnv", "AntTagEnv", "Env", "Fast", "Fetch",
            "Grasp", "Humanoid", "HumanoidStandup",
            "InvertedDoublePendulum", "InvertedPendulum", "MaskedObservationWrapper",
            "Reacher", "ReacherAngle", "State", "Ur5e", "Wrapper", "create", "wrappers"]

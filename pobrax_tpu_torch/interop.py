@@ -14,17 +14,28 @@ tensors or dicts of them.
 Both entry points run on the card unless the caller names another device
 (`device.resolve`): with no device and no GPU they raise.
 
+Training states cross the same way: `training_state_from_numpy` takes a JAX
+learner's params / opt_state / normalizer / epochs (a restored orbax tree,
+`checkpoint.load_npz`'s tree, or the JAX objects themselves) and gives a
+`PPOLearner`'s or `RNNPPOLearner`'s `TrainingState`, with flax's (in, out)
+kernels transposed into torch weights, the GRU's (r, z, n) gates stacked as
+`nn.GRUCell` stacks them, and Adam's flat moments re-sliced from JAX's leaf
+order into the port's parameter order; `training_state_to_numpy` is the
+inverse, and `params_checksum` fingerprints a JAX parameter tree.
+
 Nothing here imports jax: the leaves are read as numpy arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import hashlib
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.envs.base import State
 from pobrax_tpu_torch.envs.wrappers import EvalMetrics
@@ -99,3 +110,217 @@ def state_to_numpy(state: State) -> Dict[str, Any]:
     """The port's State -> nested dicts of numpy arrays; int64 keys become
     uint32 words as in JAX."""
     return {f: _to_numpy(getattr(state, f)) for f in _STATE_FIELDS}
+
+
+# ---- training states ---------------------------------------------------------
+#
+# A JAX training state's parameters are a flax tree of (in, out) kernels and
+# biases; its optimizer state (optax.flatten(chain(clip, adam))) holds Adam's
+# moments as ONE flat vector over the tree's leaves in jax.tree_util order
+# (dict keys sorted). The port keeps torch (out, in) weights in nn.Modules and
+# its moments as one flat vector in `parameters()` order. The layout below
+# names, per port parameter, the flax leaves stacked along its first axis.
+
+def _layout(params: torch.nn.Module) -> List[Tuple[str, List[Optional[Tuple[str, ...]]], bool]]:
+    """(port parameter name, flax leaf paths stacked along axis 0 — None for
+    rows the flax model does not have, which stay zero — and whether each
+    leaf is the transpose), in `named_parameters()` order."""
+    from pobrax_tpu_torch.training.ppo_rnn import GRUNet
+
+    out = []
+
+    def dense(port: str, path: Tuple[str, ...]):
+        out.append((f"{port}.weight", [path + ("kernel",)], True))
+        out.append((f"{port}.bias", [path + ("bias",)], False))
+
+    if isinstance(params, GRUNet):
+        for i in range(len(params.enc)):
+            dense(f"enc.{i}", ("params", f"enc_{i}"))
+        g = ("params", "gru")
+        out.append(("gru.weight_ih", [g + (n, "kernel") for n in ("ir", "iz", "in")], True))
+        out.append(("gru.weight_hh", [g + (n, "kernel") for n in ("hr", "hz", "hn")], True))
+        out.append(("gru.bias_ih", [g + (n, "bias") for n in ("ir", "iz", "in")], False))
+        out.append(("gru.bias_hh", [None, None, g + ("hn", "bias")], False))
+        dense("policy_head", ("params", "policy_head"))
+        dense("value_head", ("params", "value_head"))
+    else:  # PPOParams: policy and value MLPs
+        for net in ("policy", "value"):
+            for i in range(len(getattr(params, net).hidden)):
+                dense(f"{net}.hidden.{i}", (net, "params", f"hidden_{i}"))
+    names = [n for n, _ in params.named_parameters()]
+    assert names == [n for n, _, _ in out], (names, [n for n, _, _ in out])
+    return out
+
+
+def _as_tree(x) -> Any:
+    """Objects (flax struct dataclasses) and dicts -> nested dicts of numpy."""
+    if isinstance(x, dict):
+        return {k: _as_tree(v) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return {f.name: _as_tree(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    return np.asarray(x)
+
+
+def _leaf(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _pieces(params: torch.nn.Module):
+    """Every flax leaf: (path, port parameter name, chunk, chunks, transposed,
+    flax shape), sorted by path (jax's leaf order)."""
+    shapes = dict(params.named_parameters())
+    out = []
+    for name, paths, transposed in _layout(params):
+        shape = tuple(shapes[name].shape)
+        chunk = (shape[0] // len(paths),) + shape[1:]
+        for i, path in enumerate(paths):
+            if path is not None:
+                out.append((path, name, i, len(paths), transposed,
+                            chunk[::-1] if transposed else chunk))
+    return sorted(out, key=lambda p: p[0])
+
+
+def _port_arrays(params: torch.nn.Module, leaves: Dict[Tuple[str, ...], np.ndarray]):
+    """flax leaves by path -> the port's parameter arrays by name (numpy)."""
+    out = {}
+    shapes = {n: tuple(p.shape) for n, p in params.named_parameters()}
+    for name, paths, transposed in _layout(params):
+        shape = shapes[name]
+        rows = shape[0] // len(paths)
+        parts = [np.zeros((rows,) + shape[1:], np.float32) if p is None
+                 else (np.asarray(leaves[p], np.float32).T if transposed
+                       else np.asarray(leaves[p], np.float32))
+                 for p in paths]
+        out[name] = np.concatenate(parts, axis=0)
+    return out
+
+
+def _flax_leaves(params: torch.nn.Module, arrays: Dict[str, np.ndarray]):
+    """The port's parameter arrays by name -> flax leaves by path (sorted)."""
+    out = {}
+    for path, name, i, n, transposed, _ in _pieces(params):
+        part = np.split(arrays[name], n, axis=0)[i]
+        out[path] = np.ascontiguousarray(part.T if transposed else part)
+    return out
+
+
+def _nest(leaves: Dict[Tuple[str, ...], np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, v in leaves.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+    return tree
+
+
+def params_from_numpy(params: torch.nn.Module, flax_params) -> None:
+    """Copy a JAX learner's parameters (numpy leaves: a `PPOParams` or its
+    dict, or a GRUNet's `{'params': ...}`) into the port's module."""
+    tree = _as_tree(flax_params)
+    leaves = {p[0]: _leaf(tree, p[0]) for p in _pieces(params)}
+    arrays = _port_arrays(params, leaves)
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            p.copy_(torch.as_tensor(arrays[name]))
+
+
+def params_to_numpy(params: torch.nn.Module) -> Dict[str, Any]:
+    """The port's module -> the JAX learner's parameter tree (numpy)."""
+    arrays = {n: p.detach().cpu().numpy() for n, p in params.named_parameters()}
+    return _nest(_flax_leaves(params, arrays))
+
+
+def flat_from_numpy(params: torch.nn.Module, flat: np.ndarray) -> torch.Tensor:
+    """A JAX flat vector over the parameter leaves (Adam's mu or nu) -> the
+    port's flat vector in `parameters()` order, on the parameters' device."""
+    pieces = _pieces(params)
+    sizes = [int(np.prod(p[5])) for p in pieces]
+    chunks = np.split(np.asarray(flat, np.float32), np.cumsum(sizes)[:-1])
+    leaves = {p[0]: c.reshape(p[5]) for p, c in zip(pieces, chunks)}
+    arrays = _port_arrays(params, leaves)
+    device = next(params.parameters()).device
+    return torch.as_tensor(np.concatenate([arrays[n].reshape(-1)
+                                           for n, _ in params.named_parameters()]),
+                           device=device)
+
+
+def flat_to_numpy(params: torch.nn.Module, flat: torch.Tensor) -> np.ndarray:
+    """The port's flat vector -> the JAX flat vector (leaf order)."""
+    named = list(params.named_parameters())
+    values = np.split(flat.detach().cpu().numpy(),
+                      np.cumsum([p.numel() for _, p in named])[:-1])
+    arrays = {n: v.reshape(p.shape) for (n, p), v in zip(named, values)}
+    leaves = _flax_leaves(params, arrays)
+    return np.concatenate([leaves[p[0]].reshape(-1) for p in _pieces(params)])
+
+
+def _find_adam(x):
+    """The node of an optax state that holds Adam's `mu`, `nu` and `count`."""
+    if x is None:
+        return None
+    if (isinstance(x, dict) and "mu" in x) or hasattr(x, "mu"):
+        return x
+    items = x.values() if isinstance(x, dict) else x if isinstance(x, (list, tuple)) else ()
+    for v in items:
+        found = _find_adam(v)
+        if found is not None:
+            return found
+    return None
+
+
+def training_state_from_numpy(state: Any, learner, key: Optional[torch.Tensor] = None):
+    """A JAX training state (params, opt_state, normalizer, epochs — objects
+    or dicts with numpy-convertible leaves, e.g. `checkpoint.load_npz`'s tree
+    or a restored orbax tree) -> the learner's `TrainingState` on its
+    device. `learner` is a `PPOLearner` or an `RNNPPOLearner` built for the
+    same sizes."""
+    from pobrax_tpu_torch.training.optimizer import AdamState
+    from pobrax_tpu_torch.training.running_statistics import RunningStatisticsState
+
+    ts = learner.init(key if key is not None else jr.PRNGKey(0))
+    params_from_numpy(ts.params, _get(state, "params"))
+    adam = _find_adam(_get(state, "opt_state"))
+    if adam is not None:
+        ts.opt_state = AdamState(count=int(np.asarray(_get(adam, "count"))),
+                                 mu=flat_from_numpy(ts.params, _get(adam, "mu")),
+                                 nu=flat_from_numpy(ts.params, _get(adam, "nu")))
+    norm = _get(state, "normalizer")
+    ts.normalizer = RunningStatisticsState(**{
+        f.name: torch.as_tensor(np.array(_get(norm, f.name), np.float32), device=learner.device)
+        for f in dataclasses.fields(RunningStatisticsState)})
+    ts.epochs = int(np.asarray(_get(state, "epochs")))
+    return ts
+
+
+def training_state_to_numpy(ts) -> Dict[str, Any]:
+    """The port's TrainingState -> {"params": the JAX parameter tree,
+    "opt_state": {"count", "mu", "nu"} in JAX's flat order, "normalizer",
+    "epochs"} as numpy."""
+    return {"params": params_to_numpy(ts.params),
+            "opt_state": {"count": np.int32(ts.opt_state.count),
+                          "mu": flat_to_numpy(ts.params, ts.opt_state.mu),
+                          "nu": flat_to_numpy(ts.params, ts.opt_state.nu)},
+            "normalizer": {k: v.detach().cpu().numpy()
+                           for k, v in dataclasses.asdict(ts.normalizer).items()},
+            "epochs": np.int32(ts.epochs)}
+
+
+def params_checksum(flax_params) -> str:
+    """sha256 over a JAX parameter tree's leaves in jax's order: each leaf's
+    '/'-joined path, then its float32 bytes."""
+    tree = _as_tree(flax_params)
+    digest = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        else:
+            digest.update("/".join(path).encode())
+            digest.update(np.ascontiguousarray(node, np.float32).tobytes())
+
+    walk(tree, ())
+    return digest.hexdigest()

@@ -28,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
+from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 
 TRACE_STEPS = 5
 
@@ -60,15 +61,27 @@ def profile_mode(env_name: str, masked: bool, mode: str, steps: int, batch: int,
     run(steps)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = _trace(lambda: run(TRACE_STEPS))
+    report(tag, f"B={batch}: wall {wall_ms:.4f} ms/step over {steps} steps;", wall_ms,
+           kernels, TRACE_STEPS, "step")
+
+
+def _trace(fn):
+    """The device kernel events of fn() under torch.profiler."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(TRACE_STEPS)
+        fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / TRACE_STEPS
-    print(f"[profile:{tag}] B={batch}: wall {wall_ms:.4f} ms/step over {steps} steps; device "
-          f"kernels {busy_ms:.4f} ms/step over {TRACE_STEPS} traced steps, idle share "
-          f"{(1 - busy_ms / wall_ms) if kernels else float('nan'):.4f}, "
-          f"{len(kernels) / TRACE_STEPS:.1f} kernel launches/step", flush=True)
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def report(tag: str, head: str, wall_ms: float, kernels, per: int, unit: str,
+           top: int = 8) -> None:
+    """Device kernel ms, idle share and launches per `unit` (over `per`
+    traced units), then the `top` kernels by device time."""
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / per
+    print(f"[profile:{tag}] {head} device kernels {busy_ms:.4f} ms/{unit} over {per} traced, "
+          f"idle share {(1 - busy_ms / wall_ms) if kernels else float('nan'):.4f}, "
+          f"{len(kernels) / per:.1f} kernel launches/{unit}", flush=True)
     if not kernels:
         print(f"[profile:{tag}] no device events traced: device time not measured", flush=True)
         return
@@ -76,10 +89,45 @@ def profile_mode(env_name: str, masked: bool, mode: str, steps: int, batch: int,
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (t_us, n) in top:
-        print(f"[profile:{tag}]   {t_us / 1e3 / TRACE_STEPS:9.4f} ms/step  "
-              f"{n / TRACE_STEPS:6.1f}/step  {name[:90]}", flush=True)
+    for name, (t_us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"[profile:{tag}]   {t_us / 1e3 / per:9.4f} ms/{unit}  {n / per:8.1f}/{unit}  "
+              f"{name[:90]}", flush=True)
+
+
+def profile_learner(kind: str) -> None:
+    """One training epoch of GRU-PPO ("gru") or PPO ("ppo") on AntTag."""
+    from pobrax_tpu_torch.training import ppo, ppo_rnn
+
+    dev = torch.device("cuda")
+    rnn = kind == "gru"
+    cfg = (ppo_rnn if rnn else ppo).ANT_TAG
+    env = ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached")
+    learner = (ppo_rnn.RNNPPOLearner if rnn else ppo.PPOLearner)(env, cfg)
+    key, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)
+    ts = learner.init(k_init)
+    carry = [env.reset(jr.split(k_reset, cfg.num_envs))] + ([learner.h0(cfg.num_envs)] if rnn
+                                                            else [])
+
+    def epoch():
+        nonlocal ts, carry, key
+        key, k = jr.split(key, 2).unbind(-2)
+        ts, *carry, _ = learner.epoch(ts, *carry, k)
+
+    epoch()  # warm-up: allocations, the kernel's tables
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rollout_ms, update_ms = learner.clock.ms()
+    tag = f"learner:{kind}"
+    k_roll = jr.split(key, 3)[1]
+    report(tag, f"B={cfg.num_envs}, rollout of {cfg.unroll_length} control steps "
+                f"(untraced {rollout_ms:.4f} ms):", rollout_ms,
+           _trace(lambda: learner._rollout_and_targets(ts, carry[0], k_roll, *carry[1:])),
+           1, "rollout", top=0)
+    report(tag, f"B={cfg.num_envs}: epoch wall {wall_ms:.4f} ms (rollout {rollout_ms:.4f}, "
+                f"update {update_ms:.4f});", wall_ms, _trace(epoch), 1, "epoch")
 
 
 def main(argv=None) -> None:
@@ -89,11 +137,15 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", choices=("cached", "naive", "both"), default="both")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--learner", choices=("gru", "ppo"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         sys.exit(1)
     print(f"[profile] {_card()}", flush=True)
+    if args.learner:
+        profile_learner(args.learner)
+        return
     for mode in (("cached", "naive") if args.mode == "both" else (args.mode,)):
         profile_mode(args.env, args.masked, mode, args.steps, args.batch)
 

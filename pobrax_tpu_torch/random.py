@@ -75,6 +75,14 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)` for a data word in [0, 2**32): the
+    block cipher of `key` over the counter pair (0, data)."""
+    x0, x1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(key[..., 0]),
+                          torch.full_like(key[..., 1], int(data) & _MASK))
+    return torch.stack([x0, x1], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
     """32 random bits per element, (..., *shape), values in [0, 2**32)."""
     b1, b2 = _bits_pair(key, shape)
@@ -104,6 +112,39 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0, maxval=1.0
     # float32 reproduces the fused result
     scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
+
+
+# XLA's single-precision ErfInv (Giles' polynomial in w = -log1p(-x^2)), the
+# coefficients for w < 5 and for w >= 5, highest degree first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+               -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+               -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_NORMAL_LO = -0.99999994  # nextafter(-1, 0) in float32
+_SQRT2 = 1.4142135381698608  # sqrt(2) rounded to float32, as jax multiplies
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ErfInv for |x| < 1. Each Horner step is a fused
+    multiply-add, reproduced as a float64 step rounded to float32; log1p and
+    sqrt may differ from XLA's by an ulp, so the result agrees with
+    `jax.scipy.special.erfinv` to within 1e-6, not bit for bit."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.zeros_like(w)
+    for lt5, ge5 in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(small, lt5, ge5).double()
+        p = (c + p * w).float().double()
+    return p.float() * x
+
+
+def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """`jax.random.normal` in float32: sqrt(2) erfinv(u) for u uniform on
+    [nextafter(-1, 0), 1). The uniform draw is bit-exact; the result agrees
+    with jax to <= 1e-6 (see `erf_inv`)."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return _SQRT2 * erf_inv(u)
 
 
 def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
@@ -153,3 +194,16 @@ def choice(key: torch.Tensor, a: torch.Tensor, n_draws: int) -> torch.Tensor:
     if n_draws > a.shape[0]:
         raise ValueError(f"cannot draw {n_draws} of {a.shape[0]} without replacement")
     return a[permutation(key, a.shape[0])[..., :n_draws]]
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape: Sequence[int] = ()) -> torch.Tensor:
+    """`jax.random.truncated_normal` in float32: sqrt(2) erfinv(u) for u
+    uniform between erf(lower / sqrt 2) and erf(upper / sqrt 2), clipped
+    inside (lower, upper)."""
+    a = math.erf(lower / math.sqrt(2.0))
+    b = math.erf(upper / math.sqrt(2.0))
+    out = _SQRT2 * erf_inv(uniform(key, shape, a, b))
+    lo = torch.nextafter(torch.tensor(float(lower)), torch.tensor(math.inf)).item()
+    hi = torch.nextafter(torch.tensor(float(upper)), torch.tensor(-math.inf)).item()
+    return out.clamp(lo, hi)

@@ -1,0 +1,234 @@
+"""Recurrent PPO, a GRU policy and value for the PO tasks; the port of
+`pobrax_tpu/training/ppo_rnn.py`.
+
+  * network: obs -> MLP encoder -> GRU cell -> (policy head, value head),
+    one shared trunk (`GRUNet`);
+  * rollout: the hidden state rides along the env loop and is zeroed where
+    an episode ended (the autoreset's fresh episode gets fresh memory);
+  * update: minibatches are strided slices of the ENV axis (env b goes to
+    minibatch b % M) with time kept whole; each replays its unroll through
+    the GRU from the rollout's starting hidden state, detached, with the
+    same done-masked resets.
+GAE, the clipped objective, observation normalisation, the optimizer and
+the key stream are those of `ppo.py`; here the minibatch key runs on across
+update epochs (there is no permutation).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pobrax_tpu_torch import random as jr
+from pobrax_tpu_torch.device import resolve
+from pobrax_tpu_torch.envs.base import Env, State
+from pobrax_tpu_torch.models.networks import lecun_normal, linear
+from pobrax_tpu_torch.training.ppo import (LearnerBase, TrainingState, Transition, _mean_metrics,
+                                           _split2, resume, run_epochs, steps_per_call,
+                                           wrap_for_training)
+
+def orthogonal(key: torch.Tensor, n: int) -> torch.Tensor:
+    """An (n, n) orthogonal matrix as flax's `orthogonal()` draws it: the Q
+    of a QR of a standard normal matrix, columns signed by diag(R)."""
+    q, r = torch.linalg.qr(jr.normal(key, (n, n)))
+    return q * torch.sign(torch.diagonal(r))[None, :]
+
+
+class GRUNet(nn.Module):
+    """Encoder MLP -> `nn.GRUCell` -> policy and value heads, one step at a
+    time. Flax's GRUCell has no bias on the r and z recurrent terms; torch's
+    has one, so `bias_hh`'s r and z thirds start at zero and a gradient
+    hook keeps them there (the n third is flax's `hn` bias)."""
+
+    def __init__(self, obs_size: int, encoder_sizes: Tuple[int, ...], hidden_size: int,
+                 policy_size: int, key: Optional[torch.Tensor] = None, device=None):
+        super().__init__()
+        key = jr.PRNGKey(0) if key is None else key.cpu()
+        keys = jr.split(key, len(encoder_sizes) + 8)
+        sizes = [obs_size] + list(encoder_sizes)
+        self.enc = nn.ModuleList(linear(keys[i], sizes[i], sizes[i + 1], init=lecun_normal)
+                                 for i in range(len(encoder_sizes)))
+        k = keys[len(encoder_sizes):]
+        self.gru = nn.GRUCell(sizes[-1], hidden_size)
+        with torch.no_grad():
+            # flax names ir, iz, in / hr, hz, hn; torch stacks (r, z, n)
+            self.gru.weight_ih.copy_(torch.cat([lecun_normal(k[i], sizes[-1], hidden_size)
+                                                for i in range(3)]))
+            self.gru.weight_hh.copy_(torch.cat([orthogonal(k[3 + i], hidden_size).t()
+                                                for i in range(3)]))
+            self.gru.bias_ih.zero_()
+            self.gru.bias_hh.zero_()
+        self.gru.bias_hh.register_hook(self._rz_bias_grad_zero)
+        self.hidden_size = hidden_size
+        self.policy_head = linear(k[6], hidden_size, policy_size, init=lecun_normal)
+        self.value_head = linear(k[7], hidden_size, 1, init=lecun_normal)
+        self.to(resolve(device))
+
+    def _rz_bias_grad_zero(self, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone()
+        grad[:2 * self.hidden_size] = 0
+        return grad
+
+    def forward(self, h: torch.Tensor, obs: torch.Tensor):
+        x = obs
+        for layer in self.enc:
+            x = F.silu(layer(x))
+        h = self.gru(x, h)
+        return h, self.policy_head(h), self.value_head(h).squeeze(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RNNPPOConfig:
+    num_timesteps: int = 1_000_000
+    num_envs: int = 2048
+    episode_length: int = 1000
+    action_repeat: int = 1
+    unroll_length: int = 32
+    num_minibatches: int = 8  # slices of the ENV axis (time kept whole)
+    num_update_epochs: int = 4
+    learning_rate: float = 3e-4
+    entropy_cost: float = 1e-2
+    discounting: float = 0.97
+    gae_lambda: float = 0.95
+    clipping_epsilon: float = 0.3
+    reward_scaling: float = 1.0
+    normalize_observations: bool = True
+    normalize_advantages: bool = True
+    max_grad_norm: Optional[float] = 0.5
+    encoder_sizes: Tuple[int, ...] = (256,)
+    hidden_size: int = 128
+    epochs_per_call: int = 1
+
+
+# examples/train_ant_tag_rnn.py's recipe: the GRU-PPO that solves AntTag
+ANT_TAG = RNNPPOConfig(num_envs=2048, episode_length=1000, action_repeat=6, unroll_length=32,
+                       num_minibatches=8, num_update_epochs=4, learning_rate=3e-4,
+                       entropy_cost=3e-3, discounting=0.97, reward_scaling=1.0,
+                       encoder_sizes=(256,), hidden_size=128)
+
+
+class RNNPPOLearner(LearnerBase):
+    def __init__(self, env: Env, cfg: RNNPPOConfig):
+        if cfg.num_envs % cfg.num_minibatches:
+            raise ValueError("num_envs must divide into num_minibatches")
+        super().__init__(env, cfg)
+
+    def h0(self, batch: int) -> torch.Tensor:
+        return torch.zeros(batch, self.cfg.hidden_size, device=self.device)
+
+    def make_params(self, key: torch.Tensor) -> GRUNet:
+        return GRUNet(self.obs_size, tuple(self.cfg.encoder_sizes), self.cfg.hidden_size,
+                      self.dist.param_size, key=key, device=self.device)
+
+    def _apply(self, params, normalizer, h, obs):
+        """`normalizer=None` means `obs` is already normalised."""
+        return params(h, self._normalize(normalizer, obs))
+
+    def make_inference_fn(self) -> Callable:
+        """`policy(params_tuple, h, obs, key, deterministic=False) -> (h',
+        action)`; thread `h` yourself (zeros at the start, zeroed where an
+        episode resets)."""
+
+        @torch.no_grad()
+        def policy(params_tuple, h, obs, key, deterministic: bool = False):
+            normalizer, params = params_tuple
+            h, pol, _ = self._apply(params, normalizer, h, obs)
+            if deterministic:
+                return h, self.dist.mode(pol)
+            return h, self.dist.sample(pol, key)
+
+        return policy
+
+    @torch.no_grad()
+    def _rollout(self, ts: TrainingState, env_state: State, h: torch.Tensor, key: torch.Tensor):
+        """The hidden state is not stored per step: the loss replays it from
+        the rollout's starting h."""
+        steps = []
+        for _ in range(self.cfg.unroll_length):
+            key, k_sample = _split2(key)
+            nh, pol, value = self._apply(ts.params, ts.normalizer, h, env_state.obs)
+            pre_tanh = self.dist.sample_no_postprocess(pol, k_sample)
+            log_prob = self.dist.log_prob(pol, pre_tanh)
+            nstate = self.env.step(env_state, self.dist.postprocess(pre_tanh))
+            h = nh * (1.0 - nstate.done[:, None])
+            steps.append((env_state.obs, pre_tanh, log_prob,
+                          nstate.reward * self.cfg.reward_scaling, nstate.done,
+                          nstate.info.get("truncation", torch.zeros_like(nstate.done)), value))
+            env_state = nstate
+        data = Transition(*(torch.stack(x) for x in zip(*steps)))
+        _, _, bootstrap_value = self._apply(ts.params, ts.normalizer, h, env_state.obs)
+        return env_state, h, data, bootstrap_value
+
+    def _loss(self, params, h0, data: Transition, advantages, returns, key):
+        """Replays the unroll from `h0`; `data.obs` arrives normalised."""
+        h, pols, values = h0, [], []
+        for t in range(data.obs.shape[0]):
+            nh, pol, val = self._apply(params, None, h, data.obs[t])
+            h = nh * (1.0 - data.done[t][:, None])
+            pols.append(pol)
+            values.append(val)
+        return self._objective(torch.stack(pols), torch.stack(values), data, advantages,
+                               returns, key)
+
+    def epoch(self, ts: TrainingState, env_state: State, h: torch.Tensor, key: torch.Tensor):
+        """One epoch -> (ts, env_state, h, mean metrics); updates `ts.params`
+        in place. `self.clock.ms()` then reads its rollout / update split."""
+        cfg = self.cfg
+        M = cfg.num_minibatches
+        self.clock.mark(first=True)
+        key, k_roll, k_sgd = jr.split(key, 3).unbind(-2)
+        h0_roll = h.detach()
+        (env_state, h), data, advantages, returns, normalizer = self._rollout_and_targets(
+            ts, env_state, k_roll, h)
+        self.clock.mark()
+
+        def shape_mb(x):
+            # (T, B, ...) -> (T, B/M, M, ...) -> (M, T, B/M, ...): env b -> minibatch b % M
+            x = x.reshape(x.shape[:1] + (-1, M) + x.shape[2:])
+            return x.movedim((2, 0), (0, 1))
+
+        payload = [shape_mb(x) for x in (data.obs, data.action, data.log_prob, data.reward,
+                                         data.done, data.truncation, data.value, advantages,
+                                         returns)]
+        h0_mb = h0_roll.reshape(-1, M, cfg.hidden_size).movedim(1, 0)
+        metrics = []
+        with torch.enable_grad():
+            for _ in range(cfg.num_update_epochs):
+                for m in range(M):
+                    k_sgd, k_loss = _split2(k_sgd)
+                    mb = [x[m] for x in payload]
+                    metrics.append(self.grad_step(
+                        ts, (h0_mb[m], Transition(*mb[:7]), mb[7], mb[8]), k_loss))
+        self.clock.mark()
+        ts = TrainingState(params=ts.params, opt_state=ts.opt_state, normalizer=normalizer,
+                           epochs=ts.epochs + 1)
+        return ts, env_state, h, _mean_metrics(metrics, data.reward, cfg.reward_scaling)
+
+
+def train(env: Env, cfg: Optional[RNNPPOConfig] = None, seed: int = 0,
+          progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+          checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1_000_000,
+          autoreset_mode: str = "naive", **cfg_overrides):
+    """Train GRU-PPO on a core env (built on its device: the card unless
+    named) -> (inference_fn, (normalizer, GRUNet), history); the inference
+    function threads the hidden state: `h, action = inference_fn(params_tuple,
+    h, obs, key)`. Checkpoints and resume as `ppo.train`; the env and hidden
+    state restart fresh on resume."""
+    cfg = dataclasses.replace(cfg or RNNPPOConfig(), **cfg_overrides)
+    wrapped = wrap_for_training(env, cfg, autoreset_mode)
+    learner = RNNPPOLearner(wrapped, cfg)
+    key, k_init, k_reset = jr.split(jr.PRNGKey(seed, wrapped.device), 3).unbind(-2)
+    ts = learner.init(k_init)
+    ts, key, resumed_steps = resume(ts, key, cfg, checkpoint_dir)
+    env_state = wrapped.reset(jr.split(k_reset, cfg.num_envs))
+    h = learner.h0(cfg.num_envs)
+    # at least one call on a fresh start, as JAX's
+    num_calls = max(0 if resumed_steps else 1,
+                    -(-max(0, cfg.num_timesteps - resumed_steps) // steps_per_call(cfg)))
+    ts, _, history = run_epochs(learner, ts, (env_state, h), key, num_calls, resumed_steps,
+                                progress_fn, checkpoint_dir, checkpoint_every)
+    return learner.make_inference_fn(), (ts.normalizer, ts.params), history

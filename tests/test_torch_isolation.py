@@ -1,4 +1,5 @@
-"""The port stands alone: no jax, no `pobrax_tpu`, and no silent CPU fallback.
+"""The port stands alone: no jax (nor flax, optax, orbax), no `pobrax_tpu`,
+and no silent CPU fallback.
 
 A fresh interpreter imports every module of `pobrax_tpu_torch` and
 chip_smoke.py's module-level imports; neither jax nor `pobrax_tpu` may be
@@ -24,11 +25,16 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # its module-level imports; main() does not run on import
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "pobrax_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "pobrax_tpu"))
 print(len(names), bad)
 assert not bad, bad
-missing = {{"pobrax_tpu_torch.envs." + m for m in
-           ("ant_heavenhell", "ant_gather", "ant_maze", "maze_utils", "exploration")}} - set(names)
+missing = ({{"pobrax_tpu_torch.envs." + m for m in
+            ("ant_heavenhell", "ant_gather", "ant_maze", "maze_utils", "exploration", "fast")}}
+           | {{"pobrax_tpu_torch.training." + m for m in
+              ("ppo", "ppo_rnn", "distribution", "running_statistics", "optimizer",
+               "checkpoint")}}
+           | {{"pobrax_tpu_torch.models.networks", "pobrax_tpu_torch.eval_tag_checkpoint"}}) \
+    - set(names)
 assert not missing, missing
 """
 
@@ -55,6 +61,18 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
         AntTagEnv()
     with pytest.raises(RuntimeError):
         System(extend_ant_cfg())
+    # the learners and the checkpoint replay resolve the card the same way
+    from pobrax_tpu_torch import eval_tag_checkpoint
+    from pobrax_tpu_torch.envs.fast import Fast
+    from pobrax_tpu_torch.models import networks
+    from pobrax_tpu_torch.training import ppo, ppo_rnn, running_statistics
+    for call in (lambda: ppo.train(Fast(), num_timesteps=1),
+                 lambda: ppo_rnn.train(Fast(), num_timesteps=1),
+                 lambda: networks.make_model([4], 3),
+                 lambda: running_statistics.init_state(3),
+                 lambda: eval_tag_checkpoint.load()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
     # asking for the CPU works
     assert create("ant_tag", batch_size=2, device="cpu").unwrapped.sys.device.type == "cpu"
 
