@@ -18,15 +18,16 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      then the same for each stock System (humanoid, grasp, fetch, ur5e,
      reacherangle, inverted_double_pendulum) after a few plain steps from
      reset, with grasp's Object placed against a finger in 256 envs
-     (two-body capsule-capsule rows live); prints how many envs have a live
-     row of each kind. Then the PO ant Systems: HeavenHell and the maze after
+     (two-body capsule-capsule rows live), and the stock `ant` (SAC's env);
+     prints how many envs have a live row of each kind. Then the PO ant Systems: HeavenHell and the maze after
      20 plain steps, with 256 ants pushed against a T-maze or maze wall (the
      capsule-box rows must be live); AntGather after 50 plain steps, whose 16
      pass-through apples and bombs must come out bit-equal to their input
      with zero Info; and AntTag with `info="contact"`, whose joint and
      actuator Info must be exactly 0 and whose state and contact Info must be
      bit-equal to the "full" launch's; last, ragged batches of 4095 envs (the
-     last block one env short) cut from the walled AntTag and maze batches;
+     last block one env short) cut from the walled AntTag and maze batches
+     and from the `ant` batch, and `ant` at SAC's 128 envs;
   4. fixture replay through the kernel at batch 1, the recorded actions of
      po-brax's tests/fixtures/ref_ant_tag_s7.npz, ref_ant_heavenhell_s7.npz
      and ref_ant_gather_s7.npz;
@@ -43,7 +44,8 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      kernel's launch counter set to 0 just before the timed steps and read
      just after; AntGather prints the apples and bombs caught;
   6. times: per System (and AntTag's contact-only variant), the kernel's and
-     the plain version's time per control step at 4096 envs (CUDA events over
+     the plain version's time per control step at 4096 envs (`ant` at SAC's
+     128, then 4096; the learners' System at GRU-PPO's 2048) (CUDA events over
      back-to-back launches, after 0.2 s of warm-up), the kernel's device time
      (launches queued behind a sleep kernel, so they run back to back: the
      two differ where the wrapper's host work per launch outlasts the
@@ -60,7 +62,9 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      and the losses; fails on a non-finite loss, unchanged parameters or
      another launch count. Before it the kernel is held against the plain
      step on the action_repeat=6 System at the learners' batches (2048,
-     4096, 256);
+     4096, 256, 512 with 1/16 of the ants on a wall, and 256 with every ant
+     on a wall, held to the share the JAX package's own fused-vs-generic pair
+     reaches there, ALL_WALLED_MIN_AGREE);
   8. feed-forward PPO trains AntTag at full width: `ppo.train` with
      examples/train_ant_tag.py's recipe (`ppo.ANT_TAG`: 4096 envs,
      action_repeat 6, unroll 16, 32 minibatches, 4 update epochs, policy
@@ -70,7 +74,29 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      ant_tag_rnn_900M.npz loaded through `interop` (its parameters' checksum
      must equal the stored one), then the deterministic tag rate on 256
      episodes of the true AntTag (`eval_tag_checkpoint.tag_rate_rnn`), which
-     must reach 0.95 (the JAX replay reads 0.9922), and the stochastic one.
+     must reach 0.95 (the JAX replay reads 0.9922), and the stochastic one;
+ 10. SAC trains the stock `ant` at examples/train_sac.py's recipe
+     (`sac.ANT`: 128 envs, capacity 4096, batch 64, 32 steps an epoch,
+     min_replay 64, hidden (256, 256)), naive autoreset, 4 epochs (epochs
+     3-4 take gradient steps); per epoch the wall, the collect / update
+     split (CUDA events), ms per grad step, the whole-step launches (32),
+     env-steps/s and q_loss, actor_loss, alpha; fails on a non-finite loss,
+     unchanged parameters, another launch count or no gradient steps;
+ 11. GRU-SAC trains the unshaped AntTag at visible radius 20 at
+     examples/train_ant_tag_sac_rnn.py's recipe (`sac_rnn.ANT_TAG`: 512
+     envs, action_repeat 6, seq 32, burn-in 8, capacity 192, batch 128, 4
+     sequences an epoch, 2 grad steps a sequence, min_replay 24, discount
+     0.97, reward scale 10, nstep 5, encoder / head 256, GRU 128), cached
+     autoreset, 8 epochs (the last two whole epochs take gradient steps;
+     128 launches each), the same prints and checks; then 2 epochs with
+     prioritized replay (per_alpha 0.6, min_replay 4) through
+     `RSACLearner.epoch`, whose priority table must move off its insert
+     value and stay finite;
+ 12. the committed GRU-SAC checkpoint (pobrax_tpu_torch/checkpoints/
+     ant_tag_sac_rnn_phase0_750M.npz): the checksum, then the tag rates
+     deterministic and stochastic at radius 20 and 4, the stochastic one at
+     radius 20 gated at MIN_SAC_TAG_RATE (JAX recorded 0.8125,
+     docs/learning_ant_tag_sac_rnn_phase0.json).
 Then one JSON line with an entry per System (with its resident warps per
 SM), the card's name and power limit, and the last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before that
@@ -80,6 +106,7 @@ at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -91,11 +118,12 @@ import torch
 from pobrax_tpu_torch import eval_tag_checkpoint
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
+from pobrax_tpu_torch.envs.ant import Ant
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.masks import VELOCITY
 from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
-from pobrax_tpu_torch.training import ppo, ppo_rnn
+from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
 from time_kernel import card_line, cuda_ms, device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -118,7 +146,7 @@ STEPS_GATED = 20  # fixture obs gated at 1e-3 over the first 20 steps
 # contacts to be live (the humanoid's feet land after ~10 steps; the fetch
 # dog spawns with its feet in the ground)
 STOCK_WARM_STEPS = {"humanoid": 20, "grasp": 12, "fetch": 0, "ur5e": 5, "reacherangle": 5,
-                    "inverted_double_pendulum": 5}
+                    "inverted_double_pendulum": 5, "ant": 10}
 FINGER_ENVS = 256  # grasp envs whose Object is placed against finger f0
 MASKED_MAIN = ("humanoid", "grasp")  # the masked main paths, MAIN_STEPS each
 MASKED_OTHER, OTHER_STEPS = ("fetch", "ur5e", "reacherangle", "inverted_double_pendulum"), 100
@@ -135,9 +163,24 @@ RAGGED = 4095  # a batch that leaves the last block one env short
 # the learners' System: AntTag under ActionRepeat(6), 60 substeps a launch
 LEARNER = "ant_tag,action_repeat=6"
 ACTION_REPEAT = 6
-LEARNER_BATCHES = (2048, 4096, 256)  # GRU-PPO, PPO, the checkpoint evaluation
+# GRU-PPO, PPO, the checkpoint evaluations, GRU-SAC
+LEARNER_BATCHES = (2048, 4096, 256, 512)
+# With every ant of the learners' System on a wall, contact onsets within the
+# 60 substeps come 6x as often as at 10, and an onset that the two summation
+# orders round to opposite sides parts one env's velocities. The JAX
+# package's own pair, fused.make_fused_step against the generic step, parts
+# in 250-255 of 256 envs over seeds 5-8 on the CPU (the port's host-built
+# kernel against its plain step: 252-254; tools/walled_learner_parity.py).
+# So that case alone, here and in tests/test_torch_kernel_host.py, is held
+# to 97.5%, just under the reference's lowest share, 97.66%.
+ALL_WALLED_MIN_AGREE = 0.975
 GRU_EPOCHS, PPO_EPOCHS = 3, 2  # at ppo_rnn.ANT_TAG's and ppo.ANT_TAG's recipes
 MIN_TAG_RATE = 0.95  # the JAX replay of the checkpoint reads 0.9922
+SAC_EPOCHS, GRU_SAC_EPOCHS, PER_EPOCHS = 4, 8, 2
+SAC_RADIUS = 20.0  # GRU-SAC's phase 0 visible radius
+# the GRU-SAC checkpoint's stochastic tag rate at radius 20, 256 episodes: JAX
+# recorded 0.8125; the binomial spread at 256 episodes is ~0.025
+MIN_SAC_TAG_RATE = 0.70
 
 
 def fail(msg: str) -> None:
@@ -177,9 +220,9 @@ def plain_steps(sys_, qp, steps: int, g):
     return qp
 
 
-def compare(tag: str, sys_, qp, act, note: str):
+def compare(tag: str, sys_, qp, act, note: str, min_agree: float = MIN_AGREE):
     """One control step through the kernel and through the plain step from
-    `qp`; fails unless MIN_AGREE of the envs agree and all is finite.
+    `qp`; fails unless `min_agree` of the envs agree and all is finite.
     Returns the largest |err| over pos/rot/vel/ang."""
     batch = qp.pos.shape[0]
     qk, ik = whole_step.launch(sys_, qp, act)
@@ -197,8 +240,8 @@ def compare(tag: str, sys_, qp, act, note: str):
     print(f"[kernel-vs-plain:{tag}] B={batch}, {contacts} envs in contact{note}; max |err| "
           f"{worst}", flush=True)
     print(f"[kernel-vs-plain:{tag}] envs within pos/rot {TOL_POS:g} and vel/ang {TOL_VEL:g}: "
-          f"{frac * 100:.3f}% (need >= {MIN_AGREE * 100:.1f}%); all finite: {finite}", flush=True)
-    if not finite or frac < MIN_AGREE:
+          f"{frac * 100:.3f}% (need >= {min_agree * 100:.1f}%); all finite: {finite}", flush=True)
+    if not finite or frac < min_agree:
         fail(f"kernel disagrees with the plain step on {tag}")
     return max(float(errs[k].max()) for k in ("pos", "rot", "vel", "ang"))
 
@@ -283,16 +326,17 @@ def phase_contact_info(dev, qp, act):
     return sys_, qp, act, max_err
 
 
-def phase_ragged(tag: str, sys_, qp, act) -> None:
-    """The first RAGGED envs of a walled batch, against the plain step."""
+def phase_ragged(tag: str, sys_, qp, act, live_kind: str = "capsule_box") -> None:
+    """The first RAGGED envs of a batch, against the plain step; rows of
+    `live_kind` (the walls, or the ground) must be live."""
     cut = qp.replace(**{f: getattr(qp, f)[:RAGGED].contiguous()
                         for f in ("pos", "rot", "vel", "ang")})
     live = live_rows(sys_, cut)
     compare(f"{tag},B={RAGGED}", sys_, cut, act[:RAGGED].contiguous(),
             f"; {RAGGED % step_tables.ENVS_PER_BLOCK} envs in the last block; envs with a live "
             "row: " + ", ".join(f"{k} {v}" for k, v in live.items()))
-    if live.get("capsule_box", 0) == 0:
-        fail(f"{tag}: the ragged batch touched no wall")
+    if live.get(live_kind, 0) == 0:
+        fail(f"{tag}: the ragged batch had no live {live_kind} row")
 
 
 def live_rows(sys_, qp) -> dict:
@@ -305,11 +349,11 @@ def live_rows(sys_, qp) -> dict:
     return out
 
 
-def phase_stock_kernel_vs_plain(dev, name: str):
-    """Kernel against plain on one stock System, after STOCK_WARM_STEPS plain
-    steps from a reset; grasp's Object is placed against finger f0's distal
-    capsule (1.5 cm into it) in FINGER_ENVS envs."""
-    env = create(name, episode_length=None, auto_reset=False, batch_size=B, device=dev)
+def phase_stock_kernel_vs_plain(dev, name: str, batch: int = B):
+    """Kernel against plain on one stock System at `batch` envs, after
+    STOCK_WARM_STEPS plain steps from a reset; grasp's Object is placed
+    against finger f0's distal capsule (1.5 cm into it) in FINGER_ENVS envs."""
+    env = create(name, episode_length=None, auto_reset=False, batch_size=batch, device=dev)
     sys_ = env.sys
     qp = env.reset(jr.PRNGKey(3, dev)).qp
     g = torch.Generator(device=dev).manual_seed(0)
@@ -321,12 +365,14 @@ def phase_stock_kernel_vs_plain(dev, name: str):
                                                                          device=dev)
         qp = qp.replace(pos=pos)
     live = live_rows(sys_, qp)
-    act = torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1
+    act = torch.rand(batch, sys_.action_size, generator=g, device=dev) * 2 - 1
     note = "; envs with a live row: " + (", ".join(f"{k} {v}" for k, v in live.items())
                                          or "no contact rows")
-    max_err = compare(name, sys_, qp, act, note)
+    max_err = compare(name if batch == B else f"{name},B={batch}", sys_, qp, act, note)
     if name == "grasp" and live.get("capsule_capsule", 0) == 0:
         fail("grasp had no live capsule-capsule row: the two-body rows went unchecked")
+    if name == "ant" and live.get("point_plane", 0) == 0:
+        fail("ant had no live ground row")
     return sys_, qp, act, max_err
 
 
@@ -412,20 +458,22 @@ def phase_learner_kernel_vs_plain(dev):
     """Kernel against plain on the learners' System (AntTag, ActionRepeat(6))
     at each batch the learner paths give it, from a reset plus 3 plain steps
     with a sixteenth of the ants against the +x wall (phase 3's share, 256
-    of 4096). Returns the B=2048 inputs."""
+    of 4096), then at B=256 with every ant against it (held to
+    ALL_WALLED_MIN_AGREE). Returns the B=2048 inputs."""
     out = None
-    for batch in LEARNER_BATCHES:
+    cases = [(b, b * WALL_ENVS // B, MIN_AGREE) for b in LEARNER_BATCHES]
+    for batch, walls, min_agree in cases + [(256, 256, ALL_WALLED_MIN_AGREE)]:
         env = create("ant_tag", episode_length=None, action_repeat=ACTION_REPEAT,
                      auto_reset=False, batch_size=batch, device=dev)
         sys_ = env.sys
         qp = env.reset(jr.PRNGKey(5, dev)).qp
         g = torch.Generator(device=dev).manual_seed(5)
-        qp = push_ants(env.unwrapped, plain_steps(sys_, qp, 3, g), 0, WALL_TORSO_X,
-                       batch * WALL_ENVS // B)
+        qp = push_ants(env.unwrapped, plain_steps(sys_, qp, 3, g), 0, WALL_TORSO_X, walls)
         act = torch.rand(batch, sys_.action_size, generator=g, device=dev) * 2 - 1
         walled = int((sys_.contacts._capsule_box(qp)[4] > 0).any(-1).sum())
-        max_err = compare(f"{LEARNER},B={batch}", sys_, qp, act,
-                          f", {walled} against a wall, {sys_.config.substeps} substeps")
+        max_err = compare(f"{LEARNER},B={batch}{',all walled' if walls == batch else ''}", sys_,
+                          qp, act, f", {walled} against a wall, {sys_.config.substeps} substeps",
+                          min_agree)
         if walled == 0:
             fail(f"{LEARNER},B={batch}: no env touched a wall")
         if out is None:
@@ -505,7 +553,7 @@ def phase_checkpoint(dev, card: str) -> int:
           f"stored one: {same}", flush=True)
     if not same:
         fail("the loaded checkpoint's parameters do not match their checksum")
-    inference_fn, params = learner.make_inference_fn(), (ts.normalizer, ts.params)
+    inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
     rates = {}
     for name, seed, det in (("det", 0, True), ("stoch", 1, False)):
         torch.cuda.synchronize()
@@ -523,6 +571,150 @@ def phase_checkpoint(dev, card: str) -> int:
     if not rates["det"] >= MIN_TAG_RATE:
         fail(f"the checkpoint's deterministic tag rate {rates['det']} is below {MIN_TAG_RATE}")
     return det_launches
+
+
+def phase_off_policy(dev, card: str, kind: str, epochs: int, **overrides) -> int:
+    """Trains with `sac.train` on `ant` ("sac", naive autoreset) or
+    `sac_rnn.train` on AntTag at radius 20 ("gru_sac", cached) at the
+    examples' recipes (with `overrides`); prints and checks each epoch.
+    Returns the whole-step launches of the run."""
+    if kind == "sac":
+        module, cfg, mode = sac, dataclasses.replace(sac.ANT, **overrides), "naive"
+        make_env = lambda: Ant(device=dev)  # noqa: E731
+        per_epoch = cfg.steps_per_epoch * cfg.num_envs
+        launches_per_epoch = cfg.steps_per_epoch
+        grads_per_epoch = cfg.steps_per_epoch * cfg.grad_steps_per_env_step
+        learner = sac.SACLearner(sac.wrap_for_training(make_env(), cfg, mode), cfg)
+    else:
+        module, cfg, mode = sac_rnn, dataclasses.replace(sac_rnn.ANT_TAG, **overrides), "cached"
+        make_env = lambda: AntTagEnv(device=dev, visible_radius=SAC_RADIUS)  # noqa: E731
+        per_epoch = cfg.seqs_per_epoch * cfg.seq_len * cfg.num_envs * cfg.action_repeat
+        launches_per_epoch = cfg.seqs_per_epoch * cfg.seq_len
+        grads_per_epoch = cfg.seqs_per_epoch * cfg.grad_steps_per_seq
+        learner = sac_rnn.RSACLearner(sac_rnn.wrap_for_training(make_env(), cfg, mode), cfg)
+    tag = kind + ("" if not overrides else ","
+                  + ",".join(f"{k}={v}" for k, v in sorted(overrides.items())))
+    # the initial state, as train() makes it from the seed: its policy, and
+    # the replay buffer's device bytes
+    probe = learner.init(jr.split(jr.PRNGKey(0, dev), 3)[1])
+    initial = params_vector(probe.params.policy)
+    nbytes = sum(t.numel() * t.element_size() for t in probe.buffer.data.values())
+    del probe, learner
+    rows = []
+    last = [time.perf_counter(), 0]
+
+    def progress(steps, m):
+        now = time.perf_counter()
+        launched = whole_step.launches - last[1]
+        rows.append({"wall_ms": (now - last[0]) * 1e3, "launches": launched, **m})
+        last[:] = [now, whole_step.launches]
+        r = rows[-1]
+        print(f"[train:{tag}] epoch {len(rows)}: wall {r['wall_ms']:.1f} ms (collect "
+              f"{m['rollout_ms']:.1f} ms, update {m['update_ms']:.1f} ms, "
+              f"{m['update_ms'] / grads_per_epoch:.3f} ms per grad step if all "
+              f"{grads_per_epoch} ran), whole-step launches {launched}, "
+              f"{per_epoch / (r['wall_ms'] / 1e3):.1f} env-steps/s; q_loss {m['q_loss']:.6f}, "
+              f"actor_loss {m['actor_loss']:.6f}, alpha {m['alpha']:.6f}, mean_reward "
+              f"{m['mean_reward']:.6f}; {card}", flush=True)
+
+    torch.cuda.synchronize()
+    whole_step.launches = 0
+    last[:] = [time.perf_counter(), 0]
+    _, params, _ = module.train(make_env(), cfg, seed=0, progress_fn=progress,
+                                autoreset_mode=mode, num_timesteps=epochs * per_epoch)
+    torch.cuda.synchronize()
+    launches = whole_step.launches
+    changed = float((params_vector(params[1]) - initial).abs().max())
+    warm = rows[1:] or rows
+    print(f"[train:{tag}] {len(rows)} epochs of {cfg.num_envs} envs; replay buffer "
+          f"{nbytes} bytes on the card; whole-step launches {launches}; largest policy "
+          f"parameter change {changed:.6e}; env-steps/s after the first epoch "
+          f"{per_epoch * len(warm) / sum(r['wall_ms'] / 1e3 for r in warm):.1f}", flush=True)
+    if len(rows) != epochs:
+        fail(f"{tag}: {len(rows)} epochs ran, not {epochs}")
+    for r in rows:
+        if r["launches"] != launches_per_epoch:
+            fail(f"{tag}: an epoch launched the kernel {r['launches']} times, not "
+                 f"{launches_per_epoch} (one per control step)")
+        if not all(np.isfinite(r[k]) for k in ("q_loss", "actor_loss", "alpha")):
+            fail(f"{tag}: a non-finite loss")
+    if not all(r["q_loss"] > 0 for r in rows[-2:]):
+        fail(f"{tag}: the last two epochs took no gradient step")
+    if not np.isfinite(changed) or changed == 0.0:
+        fail(f"{tag}: the parameters did not change")
+    return launches
+
+
+def phase_per(dev, card: str, epochs: int) -> int:
+    """GRU-SAC at phase 11's recipe with prioritized replay (per_alpha 0.6,
+    min_replay 4): `epochs` epochs through `RSACLearner.epoch`, keyed and set
+    up as `sac_rnn.train` does it; each must launch the kernel once a control
+    step and give finite losses, and the priority table must then hold
+    entries moved off their insert value, all finite. Returns the launches."""
+    cfg = dataclasses.replace(sac_rnn.ANT_TAG, per_alpha=0.6, min_replay=4)
+    env = sac_rnn.wrap_for_training(AntTagEnv(device=dev, visible_radius=SAC_RADIUS), cfg,
+                                    "cached")
+    learner = sac_rnn.RSACLearner(env, cfg)
+    key, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)
+    ts = learner.init(k_init)
+    env_state = env.reset(jr.split(k_reset, cfg.num_envs))
+    h = learner.h0(cfg.num_envs)
+    launches = 0
+    for epoch in range(1, epochs + 1):
+        key, k_epoch = jr.split(key, 2).unbind(-2)
+        torch.cuda.synchronize()
+        whole_step.launches = 0
+        t0 = time.perf_counter()
+        ts, env_state, h, m = learner.epoch(ts, env_state, h, k_epoch)
+        torch.cuda.synchronize()
+        launched = whole_step.launches
+        launches += launched
+        pri = ts.priorities[ts.priorities > 0]
+        print(f"[train:gru_sac,per_alpha=0.6] epoch {epoch}: wall "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, whole-step launches {launched}; "
+              f"q_loss {float(m['q_loss']):.6f}, actor_loss {float(m['actor_loss']):.6f}; "
+              f"priorities written {pri.numel()}, off 1.0 {int((pri != 1.0).sum())}, mean "
+              f"{float(pri.mean()):.6f}, max {float(pri.max()):.6f}; {card}", flush=True)
+        if launched != cfg.seqs_per_epoch * cfg.seq_len:
+            fail(f"PER: an epoch launched the kernel {launched} times, not "
+                 f"{cfg.seqs_per_epoch * cfg.seq_len}")
+        if not all(np.isfinite(float(m[k])) for k in ("q_loss", "actor_loss", "alpha")):
+            fail("PER: a non-finite loss")
+    if not bool(torch.isfinite(ts.priorities).all()) or not bool((pri != 1.0).any()):
+        fail("PER: the priorities did not move off their insert value, or are not finite")
+    return launches
+
+
+def phase_sac_checkpoint(dev, card: str) -> int:
+    """The committed GRU-SAC checkpoint through `interop` on the card: the
+    checksum, then the tag rates at radius 20 and 4, the stochastic one at
+    radius 20 gated. Returns the replays' whole-step launches."""
+    learner, ts, same = eval_tag_checkpoint.load(eval_tag_checkpoint.SAC_NPZ, device=dev,
+                                                 sac=True)
+    print(f"[checkpoint:gru_sac] {os.path.relpath(eval_tag_checkpoint.SAC_NPZ, ROOT)}: epochs "
+          f"{ts.epochs}, Adam count {ts.q_opt.count}, parameters' checksum equal to the stored "
+          f"one: {same}", flush=True)
+    if not same:
+        fail("the loaded GRU-SAC checkpoint's parameters do not match their checksum")
+    inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
+    rates, launches = {}, 0
+    for name, radius, seed, det in eval_tag_checkpoint.measurements(sac=True):
+        torch.cuda.synchronize()
+        whole_step.launches = 0
+        t0 = time.perf_counter()
+        rates[name] = eval_tag_checkpoint.tag_rate_rnn(
+            AntTagEnv(device=dev, visible_radius=radius), inference_fn, params,
+            eval_tag_checkpoint.HIDDEN, seed=seed, action_repeat=ACTION_REPEAT,
+            deterministic=det)
+        launched = whole_step.launches
+        launches += launched
+        print(f"[checkpoint:gru_sac] tag rate {name} (radius {radius:g}, seed {seed}) "
+              f"{rates[name]:.4f} on 256 episodes in {time.perf_counter() - t0:.3f} s, "
+              f"whole-step launches {launched}; {card}", flush=True)
+    if not rates["r20_stoch"] >= MIN_SAC_TAG_RATE:
+        fail(f"the GRU-SAC checkpoint's stochastic tag rate at radius 20, {rates['r20_stoch']}, "
+             f"is below {MIN_SAC_TAG_RATE}")
+    return launches
 
 
 def main() -> None:
@@ -543,6 +735,11 @@ def main() -> None:
     compared[CONTACT] = phase_contact_info(dev, *compared["ant_tag"][1:3])
     for name in ("ant_tag", "ant_maze"):
         phase_ragged(name, *compared[name][:3])
+    phase_ragged("ant", *compared["ant"][:3], live_kind="point_plane")
+    # SAC steps `ant` at its own batch: the kernels line times `ant` there,
+    # and its 4096-env case is timed beside it
+    timed_only = {"ant": compared["ant"]}
+    compared["ant"] = phase_stock_kernel_vs_plain(dev, "ant", sac.ANT.num_envs)
     compared[LEARNER] = phase_learner_kernel_vs_plain(dev)
     for path in FIXTURES:
         phase_fixture(dev, path)
@@ -559,9 +756,15 @@ def main() -> None:
                                    info="contact")
     launches[LEARNER] = (phase_train(dev, card, "gru") + phase_train(dev, card, "ppo")
                          + phase_checkpoint(dev, card))
+    launches["ant"] = phase_off_policy(dev, card, "sac", SAC_EPOCHS)
+    launches[LEARNER] += (phase_off_policy(dev, card, "gru_sac", GRU_SAC_EPOCHS)
+                          + phase_per(dev, card, PER_EPOCHS)
+                          + phase_sac_checkpoint(dev, card))
 
     entries = []
-    for name, (sys_, qp, act, max_err) in compared.items():
+    cases = [(name, case, True) for name, case in compared.items()]
+    for name, (sys_, qp, act, max_err), listed in cases + [(n, c, False)
+                                                           for n, c in timed_only.items()]:
         kernel_ms = cuda_ms(lambda: whole_step.launch(sys_, qp, act), reps=50)
         kernel_dev_ms = device_ms(lambda: whole_step.launch(sys_, qp, act))
         plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=5)
@@ -571,6 +774,8 @@ def main() -> None:
               f"(device {kernel_dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
               f"({bound_by}), {bound / kernel_dev_ms:.4f} of the bound; {warps[name]} warps per "
               f"SM; {card}", flush=True)
+        if not listed:
+            continue
         entries.append({
             "name": f"whole_step[{name}]", "route": "cuda",
             "source": "pobrax_tpu_torch/csrc/whole_step.cu",

@@ -3,10 +3,10 @@
 `create(env_name, ..., device=None)` assembles the wrapper stack in the JAX
 factory's order: ActionRepeat -> Episode -> Vmap -> autoreset -> Eval.
 `MaskedObservationWrapper(env, env_name=..., hidden=...)` on top makes the
-PO variant of a stock env, as `bench.py`'s `masked_<name>` does. The PO ant
-tasks (`ant_tag`, `ant_heavenhell`, `ant_gather`, `ant_maze`) and the stock
-envs below are ported; `ant`, the planar envs, acrobot and fast are queued in
-ROADMAP.md.
+PO variant of a stock env, as `bench.py`'s `masked_<name>` does. Ported:
+the PO ant tasks (`ant_tag`, `ant_heavenhell`, `ant_gather`, `ant_maze`), the
+stock envs below (`ant` among them) and the debug env `fast`; the planar envs
+(`halfcheetah`, `hopper`, `walker2d`) and `acrobot` are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from pobrax_tpu_torch.envs import wrappers
+from pobrax_tpu_torch.envs.ant import Ant
 from pobrax_tpu_torch.envs.ant_gather import AntGatherEnv
 from pobrax_tpu_torch.envs.ant_heavenhell import AntHeavenHellEnv
 from pobrax_tpu_torch.envs.ant_maze import AntMazeEnv
@@ -29,6 +30,7 @@ from pobrax_tpu_torch.envs.reacher import Reacher, ReacherAngle
 from pobrax_tpu_torch.envs.ur5e import Ur5e
 
 _envs = {
+    "ant": Ant,
     "ant_tag": AntTagEnv,
     "ant_heavenhell": AntHeavenHellEnv,
     "ant_gather": AntGatherEnv,
@@ -99,7 +101,7 @@ def create(
     return env
 
 
-__all__ = ["AntGatherEnv", "AntHeavenHellEnv", "AntMazeEnv", "AntTagEnv", "Env", "Fast", "Fetch",
+__all__ = ["Ant", "AntGatherEnv", "AntHeavenHellEnv", "AntMazeEnv", "AntTagEnv", "Env", "Fast", "Fetch",
            "Grasp", "Humanoid", "HumanoidStandup",
            "InvertedDoublePendulum", "InvertedPendulum", "MaskedObservationWrapper",
            "Reacher", "ReacherAngle", "State", "Ur5e", "Wrapper", "create", "wrappers"]

@@ -15,13 +15,16 @@ Both entry points run on the card unless the caller names another device
 (`device.resolve`): with no device and no GPU they raise.
 
 Training states cross the same way: `training_state_from_numpy` takes a JAX
-learner's params / opt_state / normalizer / epochs (a restored orbax tree,
-`checkpoint.load_npz`'s tree, or the JAX objects themselves) and gives a
-`PPOLearner`'s or `RNNPPOLearner`'s `TrainingState`, with flax's (in, out)
-kernels transposed into torch weights, the GRU's (r, z, n) gates stacked as
-`nn.GRUCell` stacks them, and Adam's flat moments re-sliced from JAX's leaf
-order into the port's parameter order; `training_state_to_numpy` is the
-inverse, and `params_checksum` fingerprints a JAX parameter tree.
+learner's state (a restored orbax tree, `checkpoint.load_npz`'s tree, or the
+JAX objects themselves) and gives the port learner's state — PPO and GRU-PPO
+(params / opt_state / normalizer / epochs), SAC and GRU-SAC (policy, twin q
+and target_q stacked on a leading axis of 2, log_alpha, the policy, q and
+alpha Adam states, normalizer, epochs, and the replay buffer and PER table
+where present) — with flax's (in, out) kernels transposed into torch
+weights, the GRU's (r, z, n) gates stacked as `nn.GRUCell` stacks them, and
+Adam's flat moments re-sliced from JAX's leaf order into the port's
+parameter order; `training_state_to_numpy` is the inverse, and
+`params_checksum` fingerprints a JAX parameter tree.
 
 Nothing here imports jax: the leaves are read as numpy arrays.
 """
@@ -121,32 +124,59 @@ def state_to_numpy(state: State) -> Dict[str, Any]:
 # its moments as one flat vector in `parameters()` order. The layout below
 # names, per port parameter, the flax leaves stacked along its first axis.
 
-def _layout(params: torch.nn.Module) -> List[Tuple[str, List[Optional[Tuple[str, ...]]], bool]]:
+def _layout(params: torch.nn.Module) -> List[Tuple[str, List[Optional[Tuple]], bool]]:
     """(port parameter name, flax leaf paths stacked along axis 0 — None for
     rows the flax model does not have, which stay zero — and whether each
-    leaf is the transpose), in `named_parameters()` order."""
+    leaf is the transpose), in `named_parameters()` order. A twin critic's
+    paths end in the critic's index: JAX stacks the two critics' leaves
+    along a leading axis of 2."""
+    from pobrax_tpu_torch.models.networks import MLP
     from pobrax_tpu_torch.training.ppo_rnn import GRUNet
+    from pobrax_tpu_torch.training.sac import TwinMLP
+    from pobrax_tpu_torch.training.sac_rnn import ActorGRU, TwinCriticGRU
 
     out = []
 
-    def dense(port: str, path: Tuple[str, ...]):
-        out.append((f"{port}.weight", [path + ("kernel",)], True))
-        out.append((f"{port}.bias", [path + ("bias",)], False))
+    def dense(port: str, path: Tuple, sfx: Tuple = ()):
+        out.append((f"{port}.weight", [path + ("kernel",) + sfx], True))
+        out.append((f"{port}.bias", [path + ("bias",) + sfx], False))
 
-    if isinstance(params, GRUNet):
+    def gru(port: str, g: Tuple, sfx: Tuple = ()):
+        out.append((f"{port}.weight_ih", [g + (n, "kernel") + sfx for n in ("ir", "iz", "in")],
+                    True))
+        out.append((f"{port}.weight_hh", [g + (n, "kernel") + sfx for n in ("hr", "hz", "hn")],
+                    True))
+        out.append((f"{port}.bias_ih", [g + (n, "bias") + sfx for n in ("ir", "iz", "in")],
+                    False))
+        out.append((f"{port}.bias_hh", [None, None, g + ("hn", "bias") + sfx], False))
+
+    def mlp(port: str, net, path: Tuple, sfx: Tuple = ()):
+        for i in range(len(net.hidden)):
+            dense(f"{port}hidden.{i}", path + (f"hidden_{i}",), sfx)
+
+    p = ("params",)
+    if isinstance(params, (GRUNet, ActorGRU)):
         for i in range(len(params.enc)):
-            dense(f"enc.{i}", ("params", f"enc_{i}"))
-        g = ("params", "gru")
-        out.append(("gru.weight_ih", [g + (n, "kernel") for n in ("ir", "iz", "in")], True))
-        out.append(("gru.weight_hh", [g + (n, "kernel") for n in ("hr", "hz", "hn")], True))
-        out.append(("gru.bias_ih", [g + (n, "bias") for n in ("ir", "iz", "in")], False))
-        out.append(("gru.bias_hh", [None, None, g + ("hn", "bias")], False))
-        dense("policy_head", ("params", "policy_head"))
-        dense("value_head", ("params", "value_head"))
+            dense(f"enc.{i}", p + (f"enc_{i}",))
+        gru("gru", p + ("gru",))
+        for head in (("policy_head", "value_head") if isinstance(params, GRUNet) else ("head",)):
+            dense(head, p + (head,))
+    elif isinstance(params, TwinCriticGRU):
+        for c, critic in enumerate(params.critics):
+            for i in range(len(critic.enc)):
+                dense(f"critics.{c}.enc.{i}", p + (f"enc_{i}",), (c,))
+            gru(f"critics.{c}.gru", p + ("gru",), (c,))
+            for i in range(len(critic.head)):
+                dense(f"critics.{c}.head.{i}", p + (f"head_{i}",), (c,))
+            dense(f"critics.{c}.q", p + ("q",), (c,))
+    elif isinstance(params, TwinMLP):
+        for c, critic in enumerate(params.critics):
+            mlp(f"critics.{c}.", critic, p, (c,))
+    elif isinstance(params, MLP):
+        mlp("", params, p)
     else:  # PPOParams: policy and value MLPs
         for net in ("policy", "value"):
-            for i in range(len(getattr(params, net).hidden)):
-                dense(f"{net}.hidden.{i}", (net, "params", f"hidden_{i}"))
+            mlp(f"{net}.", getattr(params, net), (net, "params"))
     names = [n for n, _ in params.named_parameters()]
     assert names == [n for n, _, _ in out], (names, [n for n, _, _ in out])
     return out
@@ -206,9 +236,20 @@ def _flax_leaves(params: torch.nn.Module, arrays: Dict[str, np.ndarray]):
     return out
 
 
-def _nest(leaves: Dict[Tuple[str, ...], np.ndarray]) -> Dict[str, Any]:
-    tree: Dict[str, Any] = {}
+def _nest(leaves: Dict[Tuple, np.ndarray]) -> Dict[str, Any]:
+    """Leaves by path -> nested dicts; paths ending in a critic index stack
+    into one leaf with a leading critic axis."""
+    twins: Dict[Tuple, list] = {}
+    flat: Dict[Tuple, np.ndarray] = {}
     for path, v in leaves.items():
+        if isinstance(path[-1], int):
+            twins.setdefault(path[:-1], []).append((path[-1], v))
+        else:
+            flat[path] = v
+    for path, parts in twins.items():
+        flat[path] = np.stack([v for _, v in sorted(parts, key=lambda x: x[0])])
+    tree: Dict[str, Any] = {}
+    for path, v in flat.items():
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
@@ -216,9 +257,23 @@ def _nest(leaves: Dict[Tuple[str, ...], np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
+_SAC_NETS = ("policy", "q", "target_q")
+_SAC_OPTS = (("policy_opt", "policy"), ("q_opt", "q"), ("alpha_opt", "log_alpha"))
+
+
 def params_from_numpy(params: torch.nn.Module, flax_params) -> None:
     """Copy a JAX learner's parameters (numpy leaves: a `PPOParams` or its
-    dict, or a GRUNet's `{'params': ...}`) into the port's module."""
+    dict, a GRUNet's `{'params': ...}`, or SAC's params with policy, q,
+    target_q and log_alpha) into the port's module."""
+    from pobrax_tpu_torch.training.sac import SACParams
+
+    if isinstance(params, SACParams):
+        for f in _SAC_NETS:
+            params_from_numpy(getattr(params, f), _get(flax_params, f))
+        with torch.no_grad():
+            params.log_alpha.value.copy_(
+                torch.as_tensor(np.array(_get(flax_params, "log_alpha"), np.float32)))
+        return
     tree = _as_tree(flax_params)
     leaves = {p[0]: _leaf(tree, p[0]) for p in _pieces(params)}
     arrays = _port_arrays(params, leaves)
@@ -229,6 +284,12 @@ def params_from_numpy(params: torch.nn.Module, flax_params) -> None:
 
 def params_to_numpy(params: torch.nn.Module) -> Dict[str, Any]:
     """The port's module -> the JAX learner's parameter tree (numpy)."""
+    from pobrax_tpu_torch.training.sac import SACParams
+
+    if isinstance(params, SACParams):
+        out = {f: params_to_numpy(getattr(params, f)) for f in _SAC_NETS}
+        out["log_alpha"] = params.log_alpha.value.detach().cpu().numpy()
+        return out
     arrays = {n: p.detach().cpu().numpy() for n, p in params.named_parameters()}
     return _nest(_flax_leaves(params, arrays))
 
@@ -271,41 +332,111 @@ def _find_adam(x):
     return None
 
 
-def training_state_from_numpy(state: Any, learner, key: Optional[torch.Tensor] = None):
-    """A JAX training state (params, opt_state, normalizer, epochs — objects
-    or dicts with numpy-convertible leaves, e.g. `checkpoint.load_npz`'s tree
-    or a restored orbax tree) -> the learner's `TrainingState` on its
-    device. `learner` is a `PPOLearner` or an `RNNPPOLearner` built for the
-    same sizes."""
+def _maybe(obj, name):
+    """obj's field or key `name`, or None where it has none."""
+    if isinstance(obj, dict):
+        return obj.get(name)
+    return getattr(obj, name, None)
+
+
+def _flat_in(module: torch.nn.Module, flat) -> torch.Tensor:
+    from pobrax_tpu_torch.training.sac import Scalar
+
+    if isinstance(module, Scalar):  # optax.adam on a scalar: () moments
+        return torch.as_tensor(np.array(flat, np.float32).reshape(1),
+                               device=module.value.device)
+    return flat_from_numpy(module, flat)
+
+
+def _flat_out(module: torch.nn.Module, flat: torch.Tensor) -> np.ndarray:
+    from pobrax_tpu_torch.training.sac import Scalar
+
+    if isinstance(module, Scalar):
+        return flat.detach().cpu().numpy().reshape(())
+    return flat_to_numpy(module, flat)
+
+
+def _adam_from_numpy(module: torch.nn.Module, opt_state):
     from pobrax_tpu_torch.training.optimizer import AdamState
+
+    adam = _find_adam(opt_state)
+    return AdamState(count=int(np.asarray(_get(adam, "count"))),
+                     mu=_flat_in(module, _get(adam, "mu")), nu=_flat_in(module, _get(adam, "nu")))
+
+
+def _adam_to_numpy(module: torch.nn.Module, adam) -> Dict[str, np.ndarray]:
+    return {"count": np.int32(adam.count), "mu": _flat_out(module, adam.mu),
+            "nu": _flat_out(module, adam.nu)}
+
+
+def _off_policy(ts) -> bool:
+    """SAC's and GRU-SAC's state (three Adam states, the replay buffer, the
+    PER table) rather than PPO's (one Adam state)."""
+    from pobrax_tpu_torch.training.sac import SACTrainingState
+
+    return isinstance(ts, SACTrainingState)
+
+
+def training_state_from_numpy(state: Any, learner, key: Optional[torch.Tensor] = None):
+    """A JAX training state (objects or dicts with numpy-convertible leaves,
+    e.g. `checkpoint.load_npz`'s tree or a restored orbax tree) -> the
+    learner's training state on its device. `learner` is built for the same
+    sizes: a `PPOLearner` or an `RNNPPOLearner` (params, opt_state,
+    normalizer, epochs), or a `SACLearner` or an `RSACLearner` (params with
+    policy, q, target_q and log_alpha; policy_opt, q_opt, alpha_opt;
+    normalizer; epochs; and, where the state has them, the replay buffer and
+    the PER table; a checkpoint slice has neither)."""
     from pobrax_tpu_torch.training.running_statistics import RunningStatisticsState
 
     ts = learner.init(key if key is not None else jr.PRNGKey(0))
+    dev = learner.device
     params_from_numpy(ts.params, _get(state, "params"))
-    adam = _find_adam(_get(state, "opt_state"))
-    if adam is not None:
-        ts.opt_state = AdamState(count=int(np.asarray(_get(adam, "count"))),
-                                 mu=flat_from_numpy(ts.params, _get(adam, "mu")),
-                                 nu=flat_from_numpy(ts.params, _get(adam, "nu")))
+    if _off_policy(ts):
+        for opt, net in _SAC_OPTS:
+            setattr(ts, opt, _adam_from_numpy(getattr(ts.params, net), _get(state, opt)))
+        buffer = _maybe(state, "buffer")
+        if buffer is not None:
+            data = _get(buffer, "data")
+            ts.buffer = ts.buffer.replace(
+                data={k: torch.as_tensor(np.array(data[k], np.float32), device=dev)
+                      for k in ts.buffer.data},
+                insert_pos=int(np.asarray(_get(buffer, "insert_pos"))),
+                size=int(np.asarray(_get(buffer, "size"))))
+        pri = _maybe(state, "priorities")
+        if pri is not None and np.size(pri):
+            ts.priorities = torch.as_tensor(np.array(pri, np.float32), device=dev)
+    elif _find_adam(_get(state, "opt_state")) is not None:
+        ts.opt_state = _adam_from_numpy(ts.params, _get(state, "opt_state"))
     norm = _get(state, "normalizer")
     ts.normalizer = RunningStatisticsState(**{
-        f.name: torch.as_tensor(np.array(_get(norm, f.name), np.float32), device=learner.device)
+        f.name: torch.as_tensor(np.array(_get(norm, f.name), np.float32), device=dev)
         for f in dataclasses.fields(RunningStatisticsState)})
     ts.epochs = int(np.asarray(_get(state, "epochs")))
     return ts
 
 
 def training_state_to_numpy(ts) -> Dict[str, Any]:
-    """The port's TrainingState -> {"params": the JAX parameter tree,
-    "opt_state": {"count", "mu", "nu"} in JAX's flat order, "normalizer",
-    "epochs"} as numpy."""
-    return {"params": params_to_numpy(ts.params),
-            "opt_state": {"count": np.int32(ts.opt_state.count),
-                          "mu": flat_to_numpy(ts.params, ts.opt_state.mu),
-                          "nu": flat_to_numpy(ts.params, ts.opt_state.nu)},
-            "normalizer": {k: v.detach().cpu().numpy()
-                           for k, v in dataclasses.asdict(ts.normalizer).items()},
-            "epochs": np.int32(ts.epochs)}
+    """The port's training state -> numpy in the JAX learner's layout: PPO's
+    {"params", "opt_state": {"count", "mu", "nu"}, "normalizer", "epochs"};
+    SAC's {"params": {policy, q, target_q, log_alpha}, "policy_opt",
+    "q_opt", "alpha_opt" (each {"count", "mu", "nu"}), "normalizer",
+    "epochs", "buffer": {"data", "insert_pos", "size"}} and "priorities"
+    where the learner keeps a PER table."""
+    out = {"params": params_to_numpy(ts.params),
+           "normalizer": {k: v.detach().cpu().numpy()
+                          for k, v in dataclasses.asdict(ts.normalizer).items()},
+           "epochs": np.int32(ts.epochs)}
+    if _off_policy(ts):
+        for opt, net in _SAC_OPTS:
+            out[opt] = _adam_to_numpy(getattr(ts.params, net), getattr(ts, opt))
+        out["buffer"] = {"data": {k: v.detach().cpu().numpy() for k, v in ts.buffer.data.items()},
+                         "insert_pos": np.int32(ts.buffer.insert_pos),
+                         "size": np.int32(ts.buffer.size)}
+        if ts.priorities is not None:
+            out["priorities"] = ts.priorities.detach().cpu().numpy()
+        return out
+    out["opt_state"] = _adam_to_numpy(ts.params, ts.opt_state)
+    return out
 
 
 def params_checksum(flax_params) -> str:

@@ -130,6 +130,50 @@ def profile_learner(kind: str) -> None:
                 f"update {update_ms:.4f});", wall_ms, _trace(epoch), 1, "epoch")
 
 
+def profile_off_policy(kind: str) -> None:
+    """One epoch of SAC ("sac") on `ant` or GRU-SAC ("gru_sac") on AntTag."""
+    import dataclasses
+
+    from pobrax_tpu_torch.envs.ant import Ant
+    from pobrax_tpu_torch.training import sac, sac_rnn
+
+    dev = torch.device("cuda")
+    if kind == "sac":
+        cfg = dataclasses.replace(sac.ANT, min_replay=sac.ANT.steps_per_epoch)
+        env = sac.wrap_for_training(Ant(device=dev), cfg, "naive")
+        learner, carry = sac.SACLearner(env, cfg), []
+        grads = cfg.steps_per_epoch * cfg.grad_steps_per_env_step
+    else:
+        cfg = dataclasses.replace(sac_rnn.ANT_TAG, min_replay=sac_rnn.ANT_TAG.seqs_per_epoch)
+        env = sac_rnn.wrap_for_training(AntTagEnv(device=dev, visible_radius=20.0), cfg,
+                                        "cached")
+        learner = sac_rnn.RSACLearner(env, cfg)
+        carry = [learner.h0(cfg.num_envs)]
+        grads = cfg.seqs_per_epoch * cfg.grad_steps_per_seq
+    key, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)
+    ts = learner.init(k_init)
+    carry = [env.reset(jr.split(k_reset, cfg.num_envs))] + carry
+
+    def epoch():
+        nonlocal ts, carry, key
+        key, k = jr.split(key, 2).unbind(-2)
+        ts, *carry, _ = learner.epoch(ts, *carry, k)
+
+    epoch()  # warm-up: fills min_replay, allocations, the kernel's tables
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    collect_ms, update_ms = learner.clock.ms()
+    tag = f"learner:{kind}"
+    report(tag, f"B={cfg.num_envs}, one grad step alone:", update_ms / grads,
+           _trace(lambda: learner.grad_step(ts, key)), 1, "grad step", top=4)
+    report(tag, f"B={cfg.num_envs}: epoch wall {wall_ms:.4f} ms (collect {collect_ms:.4f}, "
+                f"update {update_ms:.4f}: {grads} grad steps, {update_ms / grads:.4f} ms "
+                f"each);", wall_ms, _trace(epoch), 1, "epoch")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--env", default="ant_tag")
@@ -137,12 +181,15 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", choices=("cached", "naive", "both"), default="both")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--learner", choices=("gru", "ppo"))
+    ap.add_argument("--learner", choices=("gru", "ppo", "sac", "gru_sac"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         sys.exit(1)
     print(f"[profile] {_card()}", flush=True)
+    if args.learner in ("sac", "gru_sac"):
+        profile_off_policy(args.learner)
+        return
     if args.learner:
         profile_learner(args.learner)
         return

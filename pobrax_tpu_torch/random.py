@@ -5,8 +5,9 @@ The JAX package seeds resets, the AntTag adversary and autoreset with
 jax 0.9 runs it). Its fixtures and goldens are therefore replayable only by
 a generator that reproduces those bits exactly; this module is that
 generator, for the few functions the ported path uses: `PRNGKey`, `split`,
-`uniform`, `randint`, `permutation` and `choice` without replacement (and
-`random_bits` beneath them).
+`fold_in`, `uniform`, `normal`, `truncated_normal`, `randint`, `gumbel`,
+`categorical` with replacement, and `permutation` and `choice` without
+replacement (and `random_bits` beneath them).
 
 Keys are int64 tensors whose last axis holds the two uint32 words of a JAX
 key (values in [0, 2**32)); any leading axes are batch axes, so
@@ -168,6 +169,25 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -
     offset = (_mul32(higher % span, multiplier) + lower % span) & _MASK
     offset = offset % span
     return (offset + int(minval)).to(torch.int32)
+
+
+_TINY = 1.1754943508222875e-38  # float32's smallest normal, jnp.finfo(float32).tiny
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """`jax.random.gumbel` in float32, jax's default mode "low":
+    -log(-log(u)) for u uniform on [tiny, 1). The uniform draw is bit-exact;
+    torch's log may differ from XLA's by an ulp."""
+    u = uniform(key, shape, _TINY, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """`jax.random.categorical(key, logits, shape=shape)` for 1-D logits
+    (N,), with replacement: the argmax over N of gumbel noise of shape
+    (*shape, N) added to the logits; int64 indices of `shape`."""
+    noise = gumbel(key, tuple(shape) + (logits.shape[-1],))
+    return torch.argmax(noise + logits, dim=-1)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Checkpoint and resume of a training state; the port of
 `pobrax_tpu/training/checkpoint.py`.
 
-`save` writes a `TrainingState` (parameters, Adam state, normaliser, epoch
-count) as plain tensors with `torch.save` into a directory; `restore` loads
-it into a template from the same learner's `init`, on the template's
-device. `latest_step_dir` / `save_step` keep the JAX package's
+`save` writes a learner's training state as plain tensors with
+`torch.save` into a directory: every field of the state dataclass (modules
+as state dicts, the Adam and normaliser states as dicts, the epoch count)
+except the replay buffer and its priority table, which the off-policy
+learners refill on resume, as the JAX package's `_ckpt_slice` leaves them
+out. `restore` loads it into a template from the same learner's `init`, on
+the template's device. `latest_step_dir` / `save_step` keep the JAX package's
 `root/step_000001000` layout. `load_npz` reads a JAX training state exported
 to numpy (`tools/export_torch_checkpoint.py`); `interop` turns it into the
 port's state.
@@ -18,34 +21,47 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 _FILE = "state.pt"
 
 
+_NOT_SAVED = ("buffer", "priorities")
+
+
 def _state_dict(ts) -> Dict[str, Any]:
-    return {"params": ts.params.state_dict(),
-            "opt_state": dataclasses.asdict(ts.opt_state),
-            "normalizer": dataclasses.asdict(ts.normalizer),
-            "epochs": ts.epochs}
+    out = {}
+    for f in dataclasses.fields(ts):
+        if f.name in _NOT_SAVED:
+            continue
+        v = getattr(ts, f.name)
+        out[f.name] = (v.state_dict() if isinstance(v, nn.Module)
+                       else dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+    return out
 
 
 def save(path: str, ts) -> None:
-    """Save a TrainingState into the directory `path` (made if missing)."""
+    """Save a training state into the directory `path` (made if missing)."""
     os.makedirs(path, exist_ok=True)
     torch.save(_state_dict(ts), os.path.join(path, _FILE))
 
 
 def restore(path: str, template):
-    """The TrainingState saved at `path`, loaded into `template`'s modules
-    and onto its device (pass a `learner.init(key)` result)."""
+    """The training state saved at `path`, loaded into `template`'s modules
+    and onto its device (pass a `learner.init(key)` result); the fields that
+    are not saved keep the template's."""
     device = next(template.params.parameters()).device
     saved = torch.load(os.path.join(path, _FILE), map_location=device, weights_only=True)
-    template.params.load_state_dict(saved["params"])
-    return dataclasses.replace(
-        template,
-        opt_state=type(template.opt_state)(**saved["opt_state"]),
-        normalizer=type(template.normalizer)(**saved["normalizer"]),
-        epochs=int(saved["epochs"]))
+    changes = {}
+    for name, v in saved.items():
+        old = getattr(template, name)
+        if isinstance(old, nn.Module):
+            old.load_state_dict(v)
+        elif dataclasses.is_dataclass(old):
+            changes[name] = type(old)(**v)
+        else:
+            changes[name] = type(old)(v)
+    return dataclasses.replace(template, **changes)
 
 
 def latest_step_dir(root: str) -> Optional[str]:

@@ -202,8 +202,17 @@ class LearnerBase:
         self.optimizer = Optimizer(cfg.learning_rate, cfg.max_grad_norm)
         self.clock = _PhaseClock(self.device)
 
+    @property
+    def steps_per_epoch(self) -> int:
+        cfg = self.cfg
+        return cfg.unroll_length * cfg.num_envs * cfg.action_repeat
+
     def make_params(self, key: torch.Tensor) -> nn.Module:
         raise NotImplementedError
+
+    def inference_params(self, ts: TrainingState) -> tuple:
+        """The params tuple `make_inference_fn`'s policy takes."""
+        return ts.normalizer, ts.params.policy
 
     def init(self, key: torch.Tensor) -> TrainingState:
         params = self.make_params(key)
@@ -419,41 +428,37 @@ def wrap_for_training(env: Env, cfg, autoreset_mode: str) -> Env:
     return wrappers.randomized_autoreset(wrapped, autoreset_mode)
 
 
-def resume(ts: TrainingState, key: torch.Tensor, cfg,
-           checkpoint_dir: Optional[str]) -> Tuple[TrainingState, torch.Tensor, int]:
+def resume(ts, key: torch.Tensor, checkpoint_dir: Optional[str],
+           per_epoch: int) -> Tuple[object, torch.Tensor, int]:
     """(ts, key, resumed env-steps): the latest step dir's state, and the key
     with the epoch count folded in, so the stream continues rather than
-    replays; unchanged without a checkpoint."""
+    replays; unchanged without a checkpoint. `per_epoch` is the learner's
+    `steps_per_epoch`."""
     latest = ckpt.latest_step_dir(checkpoint_dir) if checkpoint_dir is not None else None
     if latest is None:
         return ts, key, 0
     ts = ckpt.restore(latest, template=ts)
-    steps = ts.epochs * cfg.unroll_length * cfg.num_envs * cfg.action_repeat
-    return ts, jr.fold_in(key, ts.epochs), steps
+    return ts, jr.fold_in(key, ts.epochs), ts.epochs * per_epoch
 
 
-def steps_per_call(cfg) -> int:
-    return cfg.unroll_length * cfg.num_envs * cfg.action_repeat * max(1, cfg.epochs_per_call)
-
-
-def run_epochs(learner, ts: TrainingState, carry: tuple, key: torch.Tensor, num_calls: int,
+def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
                resumed_steps: int, progress_fn, checkpoint_dir: Optional[str],
-               checkpoint_every: int):
-    """The host loop of both `train`s: `num_calls` calls of `epochs_per_call`
-    epochs, `key, k_epoch = split(key)` before each epoch (JAX's stream);
+               checkpoint_every: int, epochs_per_call: int = 1):
+    """The host loop of every `train`: `num_calls` calls of `epochs_per_call`
+    epochs of `learner.steps_per_epoch` env-steps, `key, k_epoch =
+    split(key)` before each epoch (JAX's stream);
     after each call the mean metrics go to `progress_fn` (with env-steps/s
     and the last epoch's rollout / update ms) and, every `checkpoint_every`
     env-steps and at the end, the state to `checkpoint_dir`.
     `learner.epoch(ts, *carry, key)` returns (ts, *carry, metrics).
     -> (ts, carry, history)."""
-    epc = max(1, learner.cfg.epochs_per_call)
-    per_call = steps_per_call(learner.cfg)
+    per_call = learner.steps_per_epoch * epochs_per_call
     history = []
     t0 = time.perf_counter()
     last_ckpt = resumed_steps
     for i in range(num_calls):
         call_metrics = []
-        for _ in range(epc):
+        for _ in range(epochs_per_call):
             key, k_epoch = _split2(key)
             ts, *carry, metrics = learner.epoch(ts, *carry, k_epoch)
             call_metrics.append(metrics)
@@ -488,10 +493,11 @@ def train(env: Env, cfg: Optional[PPOConfig] = None, seed: int = 0,
     learner = PPOLearner(wrapped, cfg)
     key, k_init, k_reset = jr.split(jr.PRNGKey(seed, wrapped.device), 3).unbind(-2)
     ts = learner.init(k_init)
-    ts, key, resumed_steps = resume(ts, key, cfg, checkpoint_dir)
+    ts, key, resumed_steps = resume(ts, key, checkpoint_dir, learner.steps_per_epoch)
     env_state = wrapped.reset(jr.split(k_reset, cfg.num_envs))
+    epc = max(1, cfg.epochs_per_call)
     # ceil of the remaining budget: zero calls once the checkpoint covers it
-    num_calls = -(-max(0, cfg.num_timesteps - resumed_steps) // steps_per_call(cfg))
+    num_calls = -(-max(0, cfg.num_timesteps - resumed_steps) // (learner.steps_per_epoch * epc))
     ts, _, history = run_epochs(learner, ts, (env_state,), key, num_calls, resumed_steps,
-                                progress_fn, checkpoint_dir, checkpoint_every)
-    return learner.make_inference_fn(), (ts.normalizer, ts.params.policy), history
+                                progress_fn, checkpoint_dir, checkpoint_every, epc)
+    return learner.make_inference_fn(), learner.inference_params(ts), history

@@ -28,7 +28,7 @@ from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models.networks import lecun_normal, linear
 from pobrax_tpu_torch.training.ppo import (LearnerBase, TrainingState, Transition, _mean_metrics,
-                                           _split2, resume, run_epochs, steps_per_call,
+                                           _split2, resume, run_epochs,
                                            wrap_for_training)
 
 def orthogonal(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -38,11 +38,35 @@ def orthogonal(key: torch.Tensor, n: int) -> torch.Tensor:
     return q * torch.sign(torch.diagonal(r))[None, :]
 
 
+def gru_cell(keys: torch.Tensor, in_size: int, hidden_size: int) -> nn.GRUCell:
+    """An `nn.GRUCell` drawn as flax's GRUCell: input kernels (ir, iz, in)
+    lecun-normal from keys[0:3], recurrent kernels (hr, hz, hn) orthogonal
+    from keys[3:6], zero biases. Flax's cell has no bias on the r and z
+    recurrent terms; torch's has one, so `bias_hh`'s r and z thirds start at
+    zero and a gradient hook keeps them there (the n third is flax's `hn`
+    bias). On the CPU; the caller moves it."""
+    cell = nn.GRUCell(in_size, hidden_size)
+    with torch.no_grad():
+        # flax names ir, iz, in / hr, hz, hn; torch stacks (r, z, n)
+        cell.weight_ih.copy_(torch.cat([lecun_normal(keys[i], in_size, hidden_size)
+                                        for i in range(3)]))
+        cell.weight_hh.copy_(torch.cat([orthogonal(keys[3 + i], hidden_size).t()
+                                        for i in range(3)]))
+        cell.bias_ih.zero_()
+        cell.bias_hh.zero_()
+
+    def rz_bias_grad_zero(grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone()
+        grad[:2 * hidden_size] = 0
+        return grad
+
+    cell.bias_hh.register_hook(rz_bias_grad_zero)
+    return cell
+
+
 class GRUNet(nn.Module):
-    """Encoder MLP -> `nn.GRUCell` -> policy and value heads, one step at a
-    time. Flax's GRUCell has no bias on the r and z recurrent terms; torch's
-    has one, so `bias_hh`'s r and z thirds start at zero and a gradient
-    hook keeps them there (the n third is flax's `hn` bias)."""
+    """Encoder MLP -> `nn.GRUCell` (`gru_cell`) -> policy and value heads,
+    one step at a time."""
 
     def __init__(self, obs_size: int, encoder_sizes: Tuple[int, ...], hidden_size: int,
                  policy_size: int, key: Optional[torch.Tensor] = None, device=None):
@@ -53,25 +77,11 @@ class GRUNet(nn.Module):
         self.enc = nn.ModuleList(linear(keys[i], sizes[i], sizes[i + 1], init=lecun_normal)
                                  for i in range(len(encoder_sizes)))
         k = keys[len(encoder_sizes):]
-        self.gru = nn.GRUCell(sizes[-1], hidden_size)
-        with torch.no_grad():
-            # flax names ir, iz, in / hr, hz, hn; torch stacks (r, z, n)
-            self.gru.weight_ih.copy_(torch.cat([lecun_normal(k[i], sizes[-1], hidden_size)
-                                                for i in range(3)]))
-            self.gru.weight_hh.copy_(torch.cat([orthogonal(k[3 + i], hidden_size).t()
-                                                for i in range(3)]))
-            self.gru.bias_ih.zero_()
-            self.gru.bias_hh.zero_()
-        self.gru.bias_hh.register_hook(self._rz_bias_grad_zero)
+        self.gru = gru_cell(k[:6], sizes[-1], hidden_size)
         self.hidden_size = hidden_size
         self.policy_head = linear(k[6], hidden_size, policy_size, init=lecun_normal)
         self.value_head = linear(k[7], hidden_size, 1, init=lecun_normal)
         self.to(resolve(device))
-
-    def _rz_bias_grad_zero(self, grad: torch.Tensor) -> torch.Tensor:
-        grad = grad.clone()
-        grad[:2 * self.hidden_size] = 0
-        return grad
 
     def forward(self, h: torch.Tensor, obs: torch.Tensor):
         x = obs
@@ -119,6 +129,9 @@ class RNNPPOLearner(LearnerBase):
 
     def h0(self, batch: int) -> torch.Tensor:
         return torch.zeros(batch, self.cfg.hidden_size, device=self.device)
+
+    def inference_params(self, ts: TrainingState) -> tuple:
+        return ts.normalizer, ts.params
 
     def make_params(self, key: torch.Tensor) -> GRUNet:
         return GRUNet(self.obs_size, tuple(self.cfg.encoder_sizes), self.cfg.hidden_size,
@@ -223,12 +236,14 @@ def train(env: Env, cfg: Optional[RNNPPOConfig] = None, seed: int = 0,
     learner = RNNPPOLearner(wrapped, cfg)
     key, k_init, k_reset = jr.split(jr.PRNGKey(seed, wrapped.device), 3).unbind(-2)
     ts = learner.init(k_init)
-    ts, key, resumed_steps = resume(ts, key, cfg, checkpoint_dir)
+    ts, key, resumed_steps = resume(ts, key, checkpoint_dir, learner.steps_per_epoch)
     env_state = wrapped.reset(jr.split(k_reset, cfg.num_envs))
     h = learner.h0(cfg.num_envs)
+    epc = max(1, cfg.epochs_per_call)
     # at least one call on a fresh start, as JAX's
     num_calls = max(0 if resumed_steps else 1,
-                    -(-max(0, cfg.num_timesteps - resumed_steps) // steps_per_call(cfg)))
+                    -(-max(0, cfg.num_timesteps - resumed_steps)
+                      // (learner.steps_per_epoch * epc)))
     ts, _, history = run_epochs(learner, ts, (env_state, h), key, num_calls, resumed_steps,
-                                progress_fn, checkpoint_dir, checkpoint_every)
-    return learner.make_inference_fn(), (ts.normalizer, ts.params), history
+                                progress_fn, checkpoint_dir, checkpoint_every, epc)
+    return learner.make_inference_fn(), learner.inference_params(ts), history

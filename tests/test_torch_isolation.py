@@ -29,10 +29,11 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 missing = ({{"pobrax_tpu_torch.envs." + m for m in
-            ("ant_heavenhell", "ant_gather", "ant_maze", "maze_utils", "exploration", "fast")}}
+            ("ant", "ant_heavenhell", "ant_gather", "ant_maze", "maze_utils", "exploration",
+             "fast")}}
            | {{"pobrax_tpu_torch.training." + m for m in
               ("ppo", "ppo_rnn", "distribution", "running_statistics", "optimizer",
-               "checkpoint")}}
+               "checkpoint", "replay", "sac", "sac_rnn")}}
            | {{"pobrax_tpu_torch.models.networks", "pobrax_tpu_torch.eval_tag_checkpoint"}}) \
     - set(names)
 assert not missing, missing
@@ -65,9 +66,14 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
     from pobrax_tpu_torch import eval_tag_checkpoint
     from pobrax_tpu_torch.envs.fast import Fast
     from pobrax_tpu_torch.models import networks
-    from pobrax_tpu_torch.training import ppo, ppo_rnn, running_statistics
+    from pobrax_tpu_torch.envs.ant import Ant
+    from pobrax_tpu_torch.training import ppo, ppo_rnn, running_statistics, sac, sac_rnn
     for call in (lambda: ppo.train(Fast(), num_timesteps=1),
                  lambda: ppo_rnn.train(Fast(), num_timesteps=1),
+                 lambda: sac.train(Fast(), num_timesteps=1),
+                 lambda: sac_rnn.train(Fast(), num_timesteps=1),
+                 lambda: Ant(),
+                 lambda: eval_tag_checkpoint.load(eval_tag_checkpoint.SAC_NPZ, sac=True),
                  lambda: networks.make_model([4], 3),
                  lambda: running_statistics.init_state(3),
                  lambda: eval_tag_checkpoint.load()):

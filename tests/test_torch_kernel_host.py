@@ -41,19 +41,19 @@ from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
 from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.physics.state import QP
 from pobrax_tpu_torch.physics.system import System
+from chip_smoke import ALL_WALLED_MIN_AGREE
 from tests.test_torch_physics import mini_cfg, multidof_cfg
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "ref_ant_tag_s7.npz")
 _WIDTHS = (3, 4, 3, 3, 3, 3, 3, 3, 3, 3)
 
 
-@pytest.fixture(scope="module")
-def host_lib():
+def build_host_lib():
     """The host build of csrc/whole_step_host.cpp with g++, cached in build/
-    by a hash of the sources."""
+    by a hash of the sources; None where g++ is missing."""
     gxx = shutil.which("g++")
     if gxx is None:
-        pytest.skip("g++ not found: the host build of the kernel's per-env step needs it")
+        return None
     src = whole_step.CSRC / "whole_step_host.cpp"
     digest = hashlib.sha256(src.read_bytes()
                             + (whole_step.CSRC / "whole_step.cuh").read_bytes()).hexdigest()
@@ -69,6 +69,14 @@ def host_lib():
                                        + [ctypes.c_int])
     lib.ws_whole_step_host.restype = ctypes.c_int
     lib.ws_layout_words.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib():
+    lib = build_host_lib()
+    if lib is None:
+        pytest.skip("g++ not found: the host build of the kernel's per-env step needs it")
     return lib
 
 
@@ -382,3 +390,37 @@ def test_contact_info_variant_matches_jax_fused(host_lib, monkeypatch):
     for part_t, part_j in ((i.joint, ji.joint), (i.actuator, ji.actuator)):
         assert not bool(part_t.vel.any()) and not bool(part_t.ang.any())
         assert not np.asarray(part_j.vel).any() and not np.asarray(part_j.ang).any()
+
+
+def walled_learner_state(batch, seed=5):
+    """(System, qp, act): the learners' System after a reset and 3 plain
+    steps of seeded random actions, every ant pushed to torso x = 5.15."""
+    env = create("ant_tag", episode_length=None, action_repeat=6, auto_reset=False,
+                 batch_size=batch, device="cpu")
+    qp = env.reset(jr.PRNGKey(seed)).qp
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(3):
+        qp, _ = env.sys.step_generic(qp, torch.rand(batch, 8, generator=g) * 2 - 1)
+    qp = push_ants(env.unwrapped, qp, 0, 5.15)
+    return env.sys, qp, torch.rand(batch, 8, generator=g) * 2 - 1
+
+
+def test_host_kernel_on_the_learners_system_all_walled(host_lib):
+    """64 envs, all walled, 60 substeps: at least ALL_WALLED_MIN_AGREE of the
+    envs within pos/rot 1e-5 and vel/ang 1e-3 of the plain step, all finite,
+    and the lanes run backwards bit-equal to forwards."""
+    sys_, qp, act = walled_learner_state(64)
+    assert sys_.config.substeps == 60
+    assert bool((sys_.contacts._capsule_box(qp)[4] > 0).any(-1).all()), "every ant walled"
+    (q, i), (q_rev, _) = (host_step(host_lib, sys_, qp, act, reversed_lanes=r)
+                          for r in (False, True))
+    qg, _ = sys_.step_generic(qp, act)
+    err = {f: (getattr(q, f) - getattr(qg, f)).abs().flatten(1).max(1).values
+           for f in ("pos", "rot", "vel", "ang")}
+    agree = ((err["pos"] <= 1e-5) & (err["rot"] <= 1e-5) & (err["vel"] <= 1e-3)
+             & (err["ang"] <= 1e-3))
+    assert float(agree.float().mean()) >= ALL_WALLED_MIN_AGREE, agree
+    for f in ("pos", "rot", "vel", "ang"):
+        assert bool(torch.isfinite(getattr(q, f)).all()), f
+        assert torch.equal(getattr(q, f), getattr(q_rev, f)), f
+    assert float(i.contact.vel.abs().max()) > 0
