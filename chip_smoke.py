@@ -2,10 +2,12 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: `python3 chip_smoke.py`.
 
 Drives `pobrax_tpu_torch`'s main paths — the PO ant tasks AntTag,
-AntHeavenHell, AntGather and AntMaze, and the masked stock envs Humanoid and
-Grasp, each at 4096 batched envs with the cached on-device randomised
-autoreset, every control step one launch of the hand-written whole-step CUDA
-kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
+AntHeavenHell, AntGather and AntMaze, the masked stock envs Humanoid and
+Grasp, and the planar envs and acrobot, each at 4096 batched envs with the
+cached on-device randomised autoreset, every control step one launch of the
+hand-written whole-step CUDA kernel (a half-warp per env); the four learners;
+PPO on halfcheetah at examples/train_ppo.py's recipe with its HTML
+evaluation page — and checks them. Imports no jax and nothing of
 `pobrax_tpu`; the fixtures are read with numpy. Phases:
   1. card: name and power limit (nvidia-smi) and torch's device name;
   2. build: compile csrc/whole_step.cu with nvcc, print seconds and ptxas
@@ -18,8 +20,12 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      then the same for each stock System (humanoid, grasp, fetch, ur5e,
      reacherangle, inverted_double_pendulum) after a few plain steps from
      reset, with grasp's Object placed against a finger in 256 envs
-     (two-body capsule-capsule rows live), and the stock `ant` (SAC's env);
-     prints how many envs have a live row of each kind. Then the PO ant Systems: HeavenHell and the maze after
+     (two-body capsule-capsule rows live), the stock `ant` (SAC's env), the
+     planar halfcheetah (16 substeps), hopper and walker2d (ground rows on
+     bodies with frozen y translation and x/z rotation; each must have live
+     ground rows) and acrobot (no contact row at all, zero limit strength);
+     prints how many envs have a live row of each kind. Then the PO ant
+     Systems: HeavenHell and the maze after
      20 plain steps, with 256 ants pushed against a T-maze or maze wall (the
      capsule-box rows must be live); AntGather after 50 plain steps, whose 16
      pass-through apples and bombs must come out bit-equal to their input
@@ -27,10 +33,13 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      actuator Info must be exactly 0 and whose state and contact Info must be
      bit-equal to the "full" launch's; last, ragged batches of 4095 envs (the
      last block one env short) cut from the walled AntTag and maze batches
-     and from the `ant` batch, and `ant` at SAC's 128 envs;
+     and from the `ant` and halfcheetah batches, `ant` at SAC's 128 envs,
+     and halfcheetah at PPO's 1024 envs and at one env, the batches of
+     phases 13 and 14;
   4. fixture replay through the kernel at batch 1, the recorded actions of
      po-brax's tests/fixtures/ref_ant_tag_s7.npz, ref_ant_heavenhell_s7.npz
-     and ref_ant_gather_s7.npz;
+     and ref_ant_gather_s7.npz, and of the JAX package's
+     halfcheetah_s7_ours.npz;
   5. main paths: `create("ant_tag", batch_size=4096, episode_length=1000,
      randomized_autoreset=True, autoreset_mode=...)` for "cached" and
      "naive"; then `MaskedObservationWrapper(create(name, ..., "cached"),
@@ -38,14 +47,17 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      humanoid and grasp, 400 steps each, and for fetch, ur5e, reacherangle
      and inverted_double_pendulum, 100 steps each; `ant_heavenhell`,
      `ant_gather` and `ant_maze` "cached", 400 steps each, `ant_gather`
-     "naive", 100 steps (a batched permutation reset every step), and
-     `ant_tag` "cached" with `info="contact"`, 100 steps. Each runs 10
+     "naive", 100 steps (a batched permutation reset every step),
+     `ant_tag` "cached" with `info="contact"`, 100 steps, halfcheetah,
+     hopper and walker2d "cached", 400 steps each (hopper and walker2d must
+     end episodes), and acrobot "cached", 100 steps. Each runs 10
      warm-up steps then the timed steps of on-device random actions, with the
      kernel's launch counter set to 0 just before the timed steps and read
      just after; AntGather prints the apples and bombs caught;
   6. times: per System (and AntTag's contact-only variant), the kernel's and
      the plain version's time per control step at 4096 envs (`ant` at SAC's
-     128, then 4096; the learners' System at GRU-PPO's 2048) (CUDA events over
+     128, then 4096; the learners' System at GRU-PPO's 2048; halfcheetah
+     at 4096, 1024 and 1, an entry each) (CUDA events over
      back-to-back launches, after 0.2 s of warm-up), the kernel's device time
      (launches queued behind a sleep kernel, so they run back to back: the
      two differ where the wrapper's host work per launch outlasts the
@@ -96,9 +108,22 @@ kernel (a half-warp per env) — and checks them. Imports no jax and nothing of
      ant_tag_sac_rnn_phase0_750M.npz): the checksum, then the tag rates
      deterministic and stochastic at radius 20 and 4, the stochastic one at
      radius 20 gated at MIN_SAC_TAG_RATE (JAX recorded 0.8125,
-     docs/learning_ant_tag_sac_rnn_phase0.json).
-Then one JSON line with an entry per System (with its resident warps per
-SM), the card's name and power limit, and the last line
+     docs/learning_ant_tag_sac_rnn_phase0.json);
+ 13. PPO trains halfcheetah at examples/train_ppo.py's recipe
+     (`ppo.HALFCHEETAH`: 1024 envs, episode 1000, unroll 20, 16 minibatches,
+     4 update epochs, PPOConfig's other defaults) with `ppo.train`'s
+     default autoreset, naive, and its watchdog at the default deadline, 2
+     epochs; phase 8's prints and checks (20 launches an epoch);
+ 14. the example's evaluation page: HTML_FRAMES deterministic steps of the
+     trained policy on one halfcheetah, `html.save`d to a temporary file,
+     which must be well-formed with a finite pose of every body in every
+     frame (one launch a step). The gym path of examples/rollout_demo.py
+     is left out: gymnasium is not installed on the card's machine, so the
+     adapters are held by the CPU tests (tests/test_torch_gym_adapter.py).
+A `[clock]` line after each phase gives its seconds and the seconds since
+the start. Then one JSON line with an entry per System (halfcheetah one per
+batch; each with its resident warps per SM), the card's name and power
+limit, and the last line
 `{"ok": true, "device": {...}}`. Any failed phase exits non-zero before that
 line is printed. Without a CUDA device it exits 1
 at once.
@@ -109,7 +134,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -121,14 +148,17 @@ from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
 from pobrax_tpu_torch.envs.ant import Ant
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.masks import VELOCITY
+from pobrax_tpu_torch.envs.planar import Halfcheetah
+from pobrax_tpu_torch.io import html
 from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
 from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
 from time_kernel import card_line, cuda_ms, device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURES = [os.path.join(ROOT, "tests", "fixtures", f"ref_{name}_s7.npz")
-            for name in ("ant_tag", "ant_heavenhell", "ant_gather")]
+FIXTURES = [os.path.join(ROOT, "tests", "fixtures", name)
+            for name in ("ref_ant_tag_s7.npz", "ref_ant_heavenhell_s7.npz",
+                         "ref_ant_gather_s7.npz", "halfcheetah_s7_ours.npz")]
 B = 4096
 MAIN_STEPS = 400
 WARMUP_STEPS = 10  # first calls (allocator, table upload) before the timed window
@@ -144,9 +174,17 @@ TOL_POS, TOL_VEL, MIN_AGREE = 1e-5, 1e-3, 0.995
 STEPS_GATED = 20  # fixture obs gated at 1e-3 over the first 20 steps
 # stock Systems: plain steps from reset before the comparison, enough for
 # contacts to be live (the humanoid's feet land after ~10 steps; the fetch
-# dog spawns with its feet in the ground)
+# dog spawns with its feet in the ground; the planar bodies, with frozen y
+# translation and x/z rotation, touch the ground after 5-10; acrobot has no
+# contact row)
 STOCK_WARM_STEPS = {"humanoid": 20, "grasp": 12, "fetch": 0, "ur5e": 5, "reacherangle": 5,
-                    "inverted_double_pendulum": 5, "ant": 10}
+                    "inverted_double_pendulum": 5, "ant": 10, "halfcheetah": 5, "hopper": 10,
+                    "walker2d": 10, "acrobot": 5}
+PLANAR = ("halfcheetah", "hopper", "walker2d")  # cached main paths, MAIN_STEPS each
+# halfcheetah's other batches: PPO's rollout (examples/train_ppo.py's 1024
+# envs) and the HTML evaluation's one env
+HALFCHEETAH_BATCHES = (ppo.HALFCHEETAH.num_envs, 1)
+ENDS_EPISODES = ("humanoid", "hopper", "walker2d")  # random actions must end episodes
 FINGER_ENVS = 256  # grasp envs whose Object is placed against finger f0
 MASKED_MAIN = ("humanoid", "grasp")  # the masked main paths, MAIN_STEPS each
 MASKED_OTHER, OTHER_STEPS = ("fetch", "ur5e", "reacherangle", "inverted_double_pendulum"), 100
@@ -175,6 +213,7 @@ LEARNER_BATCHES = (2048, 4096, 256, 512)
 # to 97.5%, just under the reference's lowest share, 97.66%.
 ALL_WALLED_MIN_AGREE = 0.975
 GRU_EPOCHS, PPO_EPOCHS = 3, 2  # at ppo_rnn.ANT_TAG's and ppo.ANT_TAG's recipes
+HTML_FRAMES = 300  # examples/train_ppo.py's evaluation rollout
 MIN_TAG_RATE = 0.95  # the JAX replay of the checkpoint reads 0.9922
 SAC_EPOCHS, GRU_SAC_EPOCHS, PER_EPOCHS = 4, 8, 2
 SAC_RADIUS = 20.0  # GRU-SAC's phase 0 visible radius
@@ -371,8 +410,8 @@ def phase_stock_kernel_vs_plain(dev, name: str, batch: int = B):
     max_err = compare(name if batch == B else f"{name},B={batch}", sys_, qp, act, note)
     if name == "grasp" and live.get("capsule_capsule", 0) == 0:
         fail("grasp had no live capsule-capsule row: the two-body rows went unchecked")
-    if name == "ant" and live.get("point_plane", 0) == 0:
-        fail("ant had no live ground row")
+    if name in ("ant", *PLANAR) and live.get("point_plane", 0) == 0:
+        fail(f"{name} had no live ground row")
     return sys_, qp, act, max_err
 
 
@@ -449,7 +488,7 @@ def phase_main(dev, name: str, mode: str, card: str, steps: int = MAIN_STEPS,
         fail(f"main path ({tag}) produced non-finite obs or rewards")
     if masked and float(s.obs[:, VELOCITY[name]].abs().max()) != 0.0:
         fail(f"main path ({tag}) leaked a hidden VELOCITY entry")
-    if name == "humanoid" and int(dones) == 0:
+    if name in ENDS_EPISODES and int(dones) == 0:
         fail(f"main path ({tag}) ended no episode: the autoreset select went unexercised")
     return launches
 
@@ -485,17 +524,28 @@ def params_vector(module) -> torch.Tensor:
     return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
 
 
-def phase_train(dev, card: str, kind: str) -> int:
-    """Trains AntTag with `ppo_rnn.train` ("gru") or `ppo.train` ("ppo") at
-    the examples' recipes, cached autoreset; prints and checks each epoch.
-    Returns the whole-step launches of the run."""
+def _train_case(kind: str, dev):
+    """(learner module, config, core-env factory, autoreset mode, epochs):
+    "gru" and "ppo" train AntTag at the examples' recipes, cached;
+    "ppo_halfcheetah" trains halfcheetah at examples/train_ppo.py's, naive."""
+    if kind == "gru":
+        return ppo_rnn, ppo_rnn.ANT_TAG, lambda: AntTagEnv(device=dev), "cached", GRU_EPOCHS
+    if kind == "ppo":
+        return ppo, ppo.ANT_TAG, lambda: AntTagEnv(device=dev), "cached", PPO_EPOCHS
+    return ppo, ppo.HALFCHEETAH, lambda: Halfcheetah(device=dev), "naive", PPO_EPOCHS
+
+
+def phase_train(dev, card: str, kind: str):
+    """Trains with `ppo_rnn.train` ("gru") or `ppo.train` ("ppo",
+    "ppo_halfcheetah") as `_train_case` says, the watchdog at its default;
+    prints and checks each epoch. Returns (whole-step launches of the run,
+    inference_fn, params)."""
     rnn = kind == "gru"
-    module, epochs = (ppo_rnn, GRU_EPOCHS) if rnn else (ppo, PPO_EPOCHS)
-    cfg = module.ANT_TAG
+    module, cfg, make_env, mode, epochs = _train_case(kind, dev)
     steps_per_epoch = cfg.unroll_length * cfg.num_envs * cfg.action_repeat
     # the initial parameters, as train() makes them from the seed
     probe = (ppo_rnn.RNNPPOLearner if rnn else ppo.PPOLearner)(
-        ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached"), cfg)
+        ppo.wrap_for_training(make_env(), cfg, mode), cfg)
     k_init = jr.split(jr.PRNGKey(0, dev), 3)[1]
     initial = probe.make_params(k_init)
     initial = params_vector(initial if rnn else initial.policy)
@@ -518,16 +568,18 @@ def phase_train(dev, card: str, kind: str) -> int:
     torch.cuda.synchronize()
     whole_step.launches = 0
     last[:] = [time.perf_counter(), 0]
-    _, params, _ = module.train(AntTagEnv(device=dev), cfg, seed=0, progress_fn=progress,
-                                autoreset_mode="cached", num_timesteps=epochs * steps_per_epoch)
+    inference_fn, params, _ = module.train(make_env(), cfg, seed=0, progress_fn=progress,
+                                           autoreset_mode=mode,
+                                           num_timesteps=epochs * steps_per_epoch)
     torch.cuda.synchronize()
     launches = whole_step.launches
     final = params_vector(params[1])
     changed = float((final - initial).abs().max())
     warm = rows[1:] or rows  # the first epoch also builds and warms up
-    print(f"[train:{kind}] {len(rows)} epochs of {cfg.num_envs} envs; whole-step launches "
-          f"{launches}; largest parameter change {changed:.6e}; env-steps/s after the first "
-          f"epoch {steps_per_epoch * len(warm) / sum(r['wall_ms'] / 1e3 for r in warm):.1f}",
+    print(f"[train:{kind}] {len(rows)} epochs of {cfg.num_envs} envs, {mode} autoreset; "
+          f"whole-step launches {launches}; largest parameter change {changed:.6e}; "
+          f"env-steps/s after the first epoch "
+          f"{steps_per_epoch * len(warm) / sum(r['wall_ms'] / 1e3 for r in warm):.1f}",
           flush=True)
     if len(rows) != epochs:
         fail(f"{kind}: {len(rows)} epochs ran, not {epochs}")
@@ -540,6 +592,45 @@ def phase_train(dev, card: str, kind: str) -> int:
             fail(f"{kind}: a non-finite loss")
     if not np.isfinite(changed) or changed == 0.0:
         fail(f"{kind}: the parameters did not change")
+    return launches, inference_fn, params
+
+
+def phase_html(dev, card: str, inference_fn, params) -> int:
+    """examples/train_ppo.py's evaluation: HTML_FRAMES deterministic steps of
+    the trained policy on one halfcheetah, saved by `html.save` to a
+    temporary file; the page must be well-formed, with a finite pose of
+    every body in every frame. Returns the rollout's whole-step launches."""
+    env = Halfcheetah(device=dev)
+    key = jr.PRNGKey(1, dev)
+    state = env.reset(key[None])
+    qps = [state.qp]
+    torch.cuda.synchronize()
+    whole_step.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(HTML_FRAMES):
+        state = env.step(state, inference_fn(params, state.obs, key, deterministic=True))
+        qps.append(state.qp)
+    launches = whole_step.launches
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "halfcheetah_eval.html")
+        html.save(path, env.sys, qps)
+        with open(path) as f:
+            page = f.read()
+    scene = json.loads(re.search(r"const SCENE\s*=\s*(.*?);\n", page, re.DOTALL).group(1))
+    frames = json.loads(re.search(r"const FRAMES\s*=\s*(.*?);\n", page, re.DOTALL).group(1))
+    n = env.sys.num_bodies
+    well_formed = (page.lstrip().lower().startswith("<!doctype html")
+                   and page.rstrip().endswith("</html>") and len(scene["bodies"]) == n
+                   and len(frames) == HTML_FRAMES + 1
+                   and all(len(fr["pos"]) == len(fr["rot"]) == n for fr in frames)
+                   and bool(np.isfinite([fr["pos"] for fr in frames]).all()))
+    print(f"[html] {HTML_FRAMES} deterministic steps of the trained halfcheetah policy in "
+          f"{time.perf_counter() - t0:.3f} s, whole-step launches {launches}; html.save page "
+          f"{len(page)} bytes, {len(frames)} frames of {n} bodies, torso x "
+          f"{qps[0].pos[0, 0, 0]:.3f} -> {qps[-1].pos[0, 0, 0]:.3f}; well formed: {well_formed}; "
+          f"{card}", flush=True)
+    if not well_formed or launches != HTML_FRAMES:
+        fail("the halfcheetah evaluation page is malformed, or its rollout missed the kernel")
     return launches
 
 
@@ -725,24 +816,49 @@ def main() -> None:
     card = card_line()
     print(f"[card] {card}; torch device: {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = last = time.perf_counter()
+
+    def lap(label: str) -> None:
+        """Prints the seconds `label` took and the seconds since the start."""
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[clock] {label}: {now - last:.1f} s; {now - t0:.1f} s since the start",
+              flush=True)
+        last = now
 
     warps = phase_build(dev)
+    for batch in HALFCHEETAH_BATCHES:
+        warps[f"halfcheetah,B={batch}"] = warps["halfcheetah"]
+    lap("build")
     compared = {"ant_tag": phase_kernel_vs_plain(dev)}
+    lap("kernel-vs-plain:ant_tag")
     for name in STOCK_WARM_STEPS:
         compared[name] = phase_stock_kernel_vs_plain(dev, name)
+        lap(f"kernel-vs-plain:{name}")
     for name in PO_MAIN:
         compared[name] = phase_po_kernel_vs_plain(dev, name)
+        lap(f"kernel-vs-plain:{name}")
     compared[CONTACT] = phase_contact_info(dev, *compared["ant_tag"][1:3])
     for name in ("ant_tag", "ant_maze"):
         phase_ragged(name, *compared[name][:3])
     phase_ragged("ant", *compared["ant"][:3], live_kind="point_plane")
+    lap("kernel-vs-plain:contact info, ragged ant_tag, ant_maze, ant")
+    phase_ragged("halfcheetah", *compared["halfcheetah"][:3], live_kind="point_plane")
+    # PPO steps halfcheetah at its 1024 envs and the HTML evaluation at one:
+    # each batch is compared, timed and counted as an entry of its own
+    for batch in HALFCHEETAH_BATCHES:
+        compared[f"halfcheetah,B={batch}"] = phase_stock_kernel_vs_plain(dev, "halfcheetah",
+                                                                         batch)
+    lap(f"kernel-vs-plain:halfcheetah at B={RAGGED} and {HALFCHEETAH_BATCHES}")
     # SAC steps `ant` at its own batch: the kernels line times `ant` there,
     # and its 4096-env case is timed beside it
     timed_only = {"ant": compared["ant"]}
     compared["ant"] = phase_stock_kernel_vs_plain(dev, "ant", sac.ANT.num_envs)
     compared[LEARNER] = phase_learner_kernel_vs_plain(dev)
+    lap("kernel-vs-plain:ant at SAC's batch, the learners' System")
     for path in FIXTURES:
         phase_fixture(dev, path)
+        lap(f"fixture:{os.path.basename(path)}")
     launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
     phase_main(dev, "ant_tag", "naive", card)
     for name in MASKED_MAIN:
@@ -754,12 +870,28 @@ def main() -> None:
     launches["ant_gather"] += phase_main(dev, "ant_gather", "naive", card, steps=OTHER_STEPS)
     launches[CONTACT] = phase_main(dev, "ant_tag", "cached", card, steps=OTHER_STEPS,
                                    info="contact")
-    launches[LEARNER] = (phase_train(dev, card, "gru") + phase_train(dev, card, "ppo")
+    lap("main paths of the ant, masked and PO envs")
+    for name in PLANAR:
+        launches[name] = phase_main(dev, name, "cached", card)
+        lap(f"main:{name}")
+    launches["acrobot"] = phase_main(dev, "acrobot", "cached", card, steps=OTHER_STEPS)
+    lap("main:acrobot")
+    launches[LEARNER] = (phase_train(dev, card, "gru")[0] + phase_train(dev, card, "ppo")[0]
                          + phase_checkpoint(dev, card))
+    lap("train:gru, train:ppo, checkpoint")
+    trained, inference_fn, params = phase_train(dev, card, "ppo_halfcheetah")
+    launches[f"halfcheetah,B={ppo.HALFCHEETAH.num_envs}"] = trained
+    lap("train:ppo_halfcheetah")
+    launches["halfcheetah,B=1"] = phase_html(dev, card, inference_fn, params)
+    lap("html")
+    print("[gym] left out: gymnasium is not installed on the card's machine, so the gym "
+          "adapters (create_gym_env) are held by the CPU tests, tests/test_torch_gym_adapter.py",
+          flush=True)
     launches["ant"] = phase_off_policy(dev, card, "sac", SAC_EPOCHS)
     launches[LEARNER] += (phase_off_policy(dev, card, "gru_sac", GRU_SAC_EPOCHS)
                           + phase_per(dev, card, PER_EPOCHS)
                           + phase_sac_checkpoint(dev, card))
+    lap("sac, gru_sac, per, sac checkpoint")
 
     entries = []
     cases = [(name, case, True) for name, case in compared.items()]
@@ -783,6 +915,7 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "warps_per_sm": warps[name], "device_ms": kernel_dev_ms})
+    lap("times")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

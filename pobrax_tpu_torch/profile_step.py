@@ -14,6 +14,7 @@ device.
 
     python -m pobrax_tpu_torch.profile_step [--env NAME] [--masked] [--mode cached|naive|both]
                                             [--steps N] [--batch B]
+    python -m pobrax_tpu_torch.profile_step --learner gru|ppo|ppo_halfcheetah|sac|gru_sac
 """
 
 from __future__ import annotations
@@ -95,13 +96,20 @@ def report(tag: str, head: str, wall_ms: float, kernels, per: int, unit: str,
 
 
 def profile_learner(kind: str) -> None:
-    """One training epoch of GRU-PPO ("gru") or PPO ("ppo") on AntTag."""
+    """One training epoch of GRU-PPO ("gru") or PPO ("ppo") on AntTag, cached,
+    or of PPO on halfcheetah at examples/train_ppo.py's recipe, naive
+    ("ppo_halfcheetah")."""
+    from pobrax_tpu_torch.envs.planar import Halfcheetah
     from pobrax_tpu_torch.training import ppo, ppo_rnn
 
     dev = torch.device("cuda")
     rnn = kind == "gru"
-    cfg = (ppo_rnn if rnn else ppo).ANT_TAG
-    env = ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached")
+    if kind == "ppo_halfcheetah":
+        cfg = ppo.HALFCHEETAH
+        env = ppo.wrap_for_training(Halfcheetah(device=dev), cfg, "naive")
+    else:
+        cfg = (ppo_rnn if rnn else ppo).ANT_TAG
+        env = ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached")
     learner = (ppo_rnn.RNNPPOLearner if rnn else ppo.PPOLearner)(env, cfg)
     key, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)
     ts = learner.init(k_init)
@@ -181,7 +189,7 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", choices=("cached", "naive", "both"), default="both")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--learner", choices=("gru", "ppo", "sac", "gru_sac"))
+    ap.add_argument("--learner", choices=("gru", "ppo", "ppo_halfcheetah", "sac", "gru_sac"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)

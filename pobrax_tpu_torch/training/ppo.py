@@ -20,8 +20,7 @@ resumes from `checkpoint_dir` by folding the epoch count into the key.
 
 The learner runs on its env's device (the envs resolve `device`: the card
 unless named). Parameters live in `nn.Module`s and are updated in place.
-Not ported here: `mesh` (data-parallel sharding) and the watchdog
-(`watchdog_deadline_s`), ROADMAP item 7.
+Not ported here: `mesh` (data-parallel sharding), ROADMAP §1 item 3.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ from torch import nn
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models import networks
+from pobrax_tpu_torch.parallel import health
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import running_statistics
 from pobrax_tpu_torch.training.distribution import NormalTanhDistribution
@@ -153,6 +153,10 @@ class PPOConfig:
 ANT_TAG = PPOConfig(num_envs=4096, episode_length=1000, action_repeat=6, unroll_length=16,
                     num_minibatches=32, num_update_epochs=4, learning_rate=3e-4,
                     entropy_cost=3e-3, discounting=0.97, reward_scaling=1.0)
+# examples/train_ppo.py's recipe (halfcheetah in the port's chip_smoke.py);
+# its autoreset is `train`'s default, naive
+HALFCHEETAH = PPOConfig(num_envs=1024, episode_length=1000, unroll_length=20,
+                        num_minibatches=16, num_update_epochs=4)
 
 
 def _split2(key: torch.Tensor):
@@ -443,7 +447,8 @@ def resume(ts, key: torch.Tensor, checkpoint_dir: Optional[str],
 
 def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
                resumed_steps: int, progress_fn, checkpoint_dir: Optional[str],
-               checkpoint_every: int, epochs_per_call: int = 1):
+               checkpoint_every: int, *, watchdog_deadline_s: Optional[float],
+               epochs_per_call: int = 1):
     """The host loop of every `train`: `num_calls` calls of `epochs_per_call`
     epochs of `learner.steps_per_epoch` env-steps, `key, k_epoch =
     split(key)` before each epoch (JAX's stream);
@@ -451,43 +456,63 @@ def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
     and the last epoch's rollout / update ms) and, every `checkpoint_every`
     env-steps and at the end, the state to `checkpoint_dir`.
     `learner.epoch(ts, *carry, key)` returns (ts, *carry, metrics).
+
+    Failure detection, as JAX's `train`: a `health.Watchdog` whose monitor
+    thread runs for the loop, beaten after each call; a call that outlasts
+    `watchdog_deadline_s` (None disables it) is reported on stderr at once
+    and raises at the next beat. The beat follows the read of the call's
+    metrics to host floats, which waits for the card, as JAX's beat follows
+    `block_until_ready(metrics)`: one sync a call, the one `progress_fn`
+    needs anyway, made also without a `progress_fn` while the watchdog runs.
     -> (ts, carry, history)."""
     per_call = learner.steps_per_epoch * epochs_per_call
     history = []
     t0 = time.perf_counter()
     last_ckpt = resumed_steps
-    for i in range(num_calls):
-        call_metrics = []
-        for _ in range(epochs_per_call):
-            key, k_epoch = _split2(key)
-            ts, *carry, metrics = learner.epoch(ts, *carry, k_epoch)
-            call_metrics.append(metrics)
-        total_steps = resumed_steps + (i + 1) * per_call
-        if progress_fn is not None:
-            metrics = {k: float(torch.stack([m[k] for m in call_metrics]).mean())
-                       for k in call_metrics[0]}
-            metrics["rollout_ms"], metrics["update_ms"] = learner.clock.ms()
-            metrics["steps_per_second"] = (i + 1) * per_call / (time.perf_counter() - t0)
-            history.append(metrics)
-            progress_fn(total_steps, metrics)
-        if checkpoint_dir is not None and (total_steps - last_ckpt >= checkpoint_every
-                                           or i == num_calls - 1):
-            ckpt.save_step(checkpoint_dir, total_steps, ts)
-            last_ckpt = total_steps
+    wd = (health.Watchdog(deadline_s=watchdog_deadline_s).start_monitor()
+          if watchdog_deadline_s else None)
+    try:
+        for i in range(num_calls):
+            call_metrics = []
+            for _ in range(epochs_per_call):
+                key, k_epoch = _split2(key)
+                ts, *carry, metrics = learner.epoch(ts, *carry, k_epoch)
+                call_metrics.append(metrics)
+            total_steps = resumed_steps + (i + 1) * per_call
+            if progress_fn is not None or wd is not None:
+                # float() waits for the card: the call's completion
+                metrics = {k: float(torch.stack([m[k] for m in call_metrics]).mean())
+                           for k in call_metrics[0]}
+            if wd is not None:
+                wd.beat()  # raises if the monitor latched a stall
+            if progress_fn is not None:
+                metrics["rollout_ms"], metrics["update_ms"] = learner.clock.ms()
+                metrics["steps_per_second"] = (i + 1) * per_call / (time.perf_counter() - t0)
+                history.append(metrics)
+                progress_fn(total_steps, metrics)
+            if checkpoint_dir is not None and (total_steps - last_ckpt >= checkpoint_every
+                                               or i == num_calls - 1):
+                ckpt.save_step(checkpoint_dir, total_steps, ts)
+                last_ckpt = total_steps
+    finally:
+        if wd is not None:
+            wd.stop_monitor()
     return ts, tuple(carry), history
 
 
 def train(env: Env, cfg: Optional[PPOConfig] = None, seed: int = 0,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1_000_000,
-          autoreset_mode: str = "naive", **cfg_overrides):
+          autoreset_mode: str = "naive",
+          watchdog_deadline_s: Optional[float] = health.DEFAULT_DEADLINE_S,
+          **cfg_overrides):
     """Train PPO on a core env (built on its device: the card unless named)
     -> (inference_fn, (normalizer, policy), metrics history).
 
     `autoreset_mode` 'naive' (a fresh reset every step, reference parity) or
     'cached'. With `checkpoint_dir` the state is saved every
     `checkpoint_every` env-steps and at the end, and training resumes from
-    the latest step dir there."""
+    the latest step dir there. `watchdog_deadline_s`: see `run_epochs`."""
     cfg = dataclasses.replace(cfg or PPOConfig(), **cfg_overrides)
     wrapped = wrap_for_training(env, cfg, autoreset_mode)
     learner = PPOLearner(wrapped, cfg)
@@ -499,5 +524,6 @@ def train(env: Env, cfg: Optional[PPOConfig] = None, seed: int = 0,
     # ceil of the remaining budget: zero calls once the checkpoint covers it
     num_calls = -(-max(0, cfg.num_timesteps - resumed_steps) // (learner.steps_per_epoch * epc))
     ts, _, history = run_epochs(learner, ts, (env_state,), key, num_calls, resumed_steps,
-                                progress_fn, checkpoint_dir, checkpoint_every, epc)
+                                progress_fn, checkpoint_dir, checkpoint_every,
+                                watchdog_deadline_s=watchdog_deadline_s, epochs_per_call=epc)
     return learner.make_inference_fn(), learner.inference_params(ts), history

@@ -27,6 +27,7 @@ from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models.networks import lecun_normal, linear
+from pobrax_tpu_torch.parallel import health
 from pobrax_tpu_torch.training.ppo import (LearnerBase, TrainingState, Transition, _mean_metrics,
                                            _split2, resume, run_epochs,
                                            wrap_for_training)
@@ -225,12 +226,14 @@ class RNNPPOLearner(LearnerBase):
 def train(env: Env, cfg: Optional[RNNPPOConfig] = None, seed: int = 0,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1_000_000,
-          autoreset_mode: str = "naive", **cfg_overrides):
+          autoreset_mode: str = "naive",
+          watchdog_deadline_s: Optional[float] = health.DEFAULT_DEADLINE_S,
+          **cfg_overrides):
     """Train GRU-PPO on a core env (built on its device: the card unless
     named) -> (inference_fn, (normalizer, GRUNet), history); the inference
     function threads the hidden state: `h, action = inference_fn(params_tuple,
     h, obs, key)`. Checkpoints and resume as `ppo.train`; the env and hidden
-    state restart fresh on resume."""
+    state restart fresh on resume. `watchdog_deadline_s`: see `ppo.run_epochs`."""
     cfg = dataclasses.replace(cfg or RNNPPOConfig(), **cfg_overrides)
     wrapped = wrap_for_training(env, cfg, autoreset_mode)
     learner = RNNPPOLearner(wrapped, cfg)
@@ -245,5 +248,6 @@ def train(env: Env, cfg: Optional[RNNPPOConfig] = None, seed: int = 0,
                     -(-max(0, cfg.num_timesteps - resumed_steps)
                       // (learner.steps_per_epoch * epc)))
     ts, _, history = run_epochs(learner, ts, (env_state, h), key, num_calls, resumed_steps,
-                                progress_fn, checkpoint_dir, checkpoint_every, epc)
+                                progress_fn, checkpoint_dir, checkpoint_every,
+                                watchdog_deadline_s=watchdog_deadline_s, epochs_per_call=epc)
     return learner.make_inference_fn(), learner.inference_params(ts), history

@@ -26,8 +26,7 @@ states are flat vectors (`training/optimizer.py`, no clipping), which
 `pobrax_tpu_torch.interop` maps to and from JAX's `optax.flatten(adam)`
 states. Beyond JAX's `sac.train`, `train` checkpoints and resumes as the
 recurrent learner does (`checkpoint_dir`; the replay buffer is not saved and
-refills through `min_replay`). Not ported: `mesh` and the watchdog
-(`watchdog_deadline_s`), ROADMAP item 3.
+refills through `min_replay`). Not ported: `mesh`, ROADMAP §1 item 3.
 """
 
 from __future__ import annotations
@@ -45,6 +44,7 @@ from torch import nn
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models import networks
+from pobrax_tpu_torch.parallel import health
 from pobrax_tpu_torch.training import replay, running_statistics
 from pobrax_tpu_torch.training.distribution import NormalTanhDistribution
 from pobrax_tpu_torch.training.optimizer import AdamState, Optimizer
@@ -363,12 +363,15 @@ def wrap_for_training(env: Env, cfg: SACConfig, autoreset_mode: str) -> Env:
 def train(env: Env, cfg: Optional[SACConfig] = None, seed: int = 0,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           autoreset_mode: str = "naive", checkpoint_dir: Optional[str] = None,
-          checkpoint_every: int = 1_000_000, **cfg_overrides):
+          checkpoint_every: int = 1_000_000,
+          watchdog_deadline_s: Optional[float] = health.DEFAULT_DEADLINE_S,
+          **cfg_overrides):
     """Train SAC on a core env (built on its device: the card unless named)
     -> (inference_fn, (normalizer, policy), history). The env is wrapped
     Episode -> Vmap -> randomised autoreset (`autoreset_mode` 'naive' or
     'cached'); `progress_fn` gets the epoch's mean losses, `rollout_ms` /
-    `update_ms` (the collect / update split) and `steps_per_second`."""
+    `update_ms` (the collect / update split) and `steps_per_second`.
+    `watchdog_deadline_s`: see `ppo.run_epochs`."""
     cfg = dataclasses.replace(cfg or SACConfig(), **cfg_overrides)
     wrapped = wrap_for_training(env, cfg, autoreset_mode)
     learner = SACLearner(wrapped, cfg)
@@ -381,5 +384,6 @@ def train(env: Env, cfg: Optional[SACConfig] = None, seed: int = 0,
     num_epochs = max(0 if resumed_steps else 1,
                      max(0, cfg.num_timesteps - resumed_steps) // per_epoch)
     ts, _, history = run_epochs(learner, ts, (env_state,), key, num_epochs, resumed_steps,
-                                progress_fn, checkpoint_dir, checkpoint_every)
+                                progress_fn, checkpoint_dir, checkpoint_every,
+                                watchdog_deadline_s=watchdog_deadline_s)
     return learner.make_inference_fn(), learner.inference_params(ts), history

@@ -34,7 +34,7 @@ step's update). The GRU cells follow `ppo_rnn.gru_cell`'s conventions.
 Adam states, the normaliser and the epoch count; the key folded with the
 epoch count; `actor_freeze_epochs` counted from the resumed epoch) and
 collects with a `carry_env` in the first columns (`[carry | train]`). Not
-ported: `mesh` and the watchdog, ROADMAP item 3.
+ported: `mesh`, ROADMAP §1 item 3.
 """
 
 from __future__ import annotations
@@ -49,6 +49,7 @@ from torch import nn
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models.networks import lecun_normal, linear
+from pobrax_tpu_torch.parallel import health
 from pobrax_tpu_torch.training import replay, running_statistics
 from pobrax_tpu_torch.training.distribution import NormalTanhDistribution
 from pobrax_tpu_torch.training.optimizer import Optimizer
@@ -534,7 +535,9 @@ def train(env: Env, cfg: Optional[RSACConfig] = None, seed: int = 0,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           autoreset_mode: str = "naive", checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 1_000_000, carry_env: Optional[Env] = None,
-          carry_frac: float = 0.25, **cfg_overrides):
+          carry_frac: float = 0.25,
+          watchdog_deadline_s: Optional[float] = health.DEFAULT_DEADLINE_S,
+          **cfg_overrides):
     """Train recurrent SAC on a core env (built on its device: the card
     unless named) -> (inference_fn, (normalizer, ActorGRU), history).
 
@@ -543,7 +546,8 @@ def train(env: Env, cfg: Optional[RSACConfig] = None, seed: int = 0,
     training resumes from the latest step dir (the replay buffer refills
     through `min_replay`). With `carry_env` (a curriculum's previous-phase
     env), a `carry_frac` share of the columns, rounded to at least one,
-    keeps collecting from it: the batch is [carry | train]."""
+    keeps collecting from it: the batch is [carry | train].
+    `watchdog_deadline_s`: see `ppo.run_epochs`."""
     cfg = dataclasses.replace(cfg or RSACConfig(), **cfg_overrides)
     wrapped = wrap_for_training(env, cfg, autoreset_mode)
     if carry_env is not None and carry_frac <= 0.0:
@@ -572,5 +576,5 @@ def train(env: Env, cfg: Optional[RSACConfig] = None, seed: int = 0,
                      -(-max(0, cfg.num_timesteps - resumed_steps) // per_epoch))
     ts, _, history = run_epochs(_Epochs(learner, freeze_until), ts, (env_state, h), key,
                                 num_epochs, resumed_steps, progress_fn, checkpoint_dir,
-                                checkpoint_every)
+                                checkpoint_every, watchdog_deadline_s=watchdog_deadline_s)
     return learner.make_inference_fn(), learner.inference_params(ts), history

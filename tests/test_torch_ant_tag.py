@@ -118,8 +118,10 @@ def test_substeps_8_preset_tracks_jax():
 
 
 def test_unported_env_names_raise():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        create("halfcheetah", device="cpu")
+    # every name of the JAX registry is ported (tests/test_torch_factory.py);
+    # any other name raises and lists the registered ones
+    with pytest.raises(ValueError, match=r"unknown env 'no_such_env'.*'halfcheetah'"):
+        create("no_such_env", device="cpu")
     with pytest.raises(ValueError):
         create("ant_tag", device="cpu", autoreset_mode="Cached")
 

@@ -30,7 +30,10 @@ print(len(names), bad)
 assert not bad, bad
 missing = ({{"pobrax_tpu_torch.envs." + m for m in
             ("ant", "ant_heavenhell", "ant_gather", "ant_maze", "maze_utils", "exploration",
-             "fast")}}
+             "fast", "planar", "acrobot", "gym_adapter")}}
+           | {{"pobrax_tpu_torch.physics.planar", "pobrax_tpu_torch.io.html",
+               "pobrax_tpu_torch.parallel.health"}}
+           | {{"pobrax_tpu_torch.utils." + m for m in ("profiling", "metrics_writer", "debug")}}
            | {{"pobrax_tpu_torch.training." + m for m in
               ("ppo", "ppo_rnn", "distribution", "running_statistics", "optimizer",
                "checkpoint", "replay", "sac", "sac_rnn")}}
@@ -50,7 +53,7 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
-    from pobrax_tpu_torch.envs import _envs, create
+    from pobrax_tpu_torch.envs import _envs, create, create_gym_env
     from pobrax_tpu_torch.envs.ant_tag import AntTagEnv, extend_ant_cfg
     from pobrax_tpu_torch.physics import System
 
@@ -58,6 +61,9 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
     for name in sorted(_envs):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             create(name, batch_size=2)
+    for batch_size in (None, 4):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            create_gym_env("walker2d", batch_size=batch_size)
     with pytest.raises(RuntimeError):
         AntTagEnv()
     with pytest.raises(RuntimeError):
@@ -67,12 +73,17 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
     from pobrax_tpu_torch.envs.fast import Fast
     from pobrax_tpu_torch.models import networks
     from pobrax_tpu_torch.envs.ant import Ant
+    from pobrax_tpu_torch.envs.planar import Halfcheetah, Hopper, Walker2d
+    from pobrax_tpu_torch.envs.acrobot import Acrobot
     from pobrax_tpu_torch.training import ppo, ppo_rnn, running_statistics, sac, sac_rnn
+    from pobrax_tpu_torch.utils import debug
     for call in (lambda: ppo.train(Fast(), num_timesteps=1),
                  lambda: ppo_rnn.train(Fast(), num_timesteps=1),
                  lambda: sac.train(Fast(), num_timesteps=1),
                  lambda: sac_rnn.train(Fast(), num_timesteps=1),
                  lambda: Ant(),
+                 lambda: Halfcheetah(), lambda: Hopper(), lambda: Walker2d(), lambda: Acrobot(),
+                 lambda: debug.assert_deterministic(lambda key: key),
                  lambda: eval_tag_checkpoint.load(eval_tag_checkpoint.SAC_NPZ, sac=True),
                  lambda: networks.make_model([4], 3),
                  lambda: running_statistics.init_state(3),
