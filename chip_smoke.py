@@ -7,7 +7,9 @@ Grasp, and the planar envs and acrobot, each at 4096 batched envs with the
 cached on-device randomised autoreset, every control step one launch of the
 hand-written whole-step CUDA kernel (a half-warp per env); the four learners;
 PPO on halfcheetah at examples/train_ppo.py's recipe with its HTML
-evaluation page — and checks them. Imports no jax and nothing of
+evaluation page; and the multi-process half, two ranks of a 'data' mesh
+sharing the card over gloo training AntTag with PPO and GRU-SAC — and
+checks them. Imports no jax and nothing of
 `pobrax_tpu`; the fixtures are read with numpy. Phases:
   1. card: name and power limit (nvidia-smi) and torch's device name;
   2. build: compile csrc/whole_step.cu with nvcc, print seconds and ptxas
@@ -41,8 +43,8 @@ evaluation page — and checks them. Imports no jax and nothing of
      and ref_ant_gather_s7.npz, and of the JAX package's
      halfcheetah_s7_ours.npz;
   5. main paths: `create("ant_tag", batch_size=4096, episode_length=1000,
-     randomized_autoreset=True, autoreset_mode=...)` for "cached" and
-     "naive"; then `MaskedObservationWrapper(create(name, ..., "cached"),
+     randomized_autoreset=True, autoreset_mode=...)` for "cached" (400
+     steps) and "naive" (100); then `MaskedObservationWrapper(create(name, ..., "cached"),
      env_name=name, hidden=("VELOCITY",))` (`bench.py`'s masked_<name>) for
      humanoid and grasp, 400 steps each, and for fetch, ur5e, reacherangle
      and inverted_double_pendulum, 100 steps each; `ant_heavenhell`,
@@ -56,8 +58,9 @@ evaluation page — and checks them. Imports no jax and nothing of
      just after; AntGather prints the apples and bombs caught;
   6. times: per System (and AntTag's contact-only variant), the kernel's and
      the plain version's time per control step at 4096 envs (`ant` at SAC's
-     128, then 4096; the learners' System at GRU-PPO's 2048; halfcheetah
-     at 4096, 1024 and 1, an entry each) (CUDA events over
+     128, then 4096; the learners' System at GRU-PPO's 2048 and at a GRU-SAC
+     rank's 256, an entry each; halfcheetah at 4096, 1024 and 1, an entry
+     each) (CUDA events over
      back-to-back launches, after 0.2 s of warm-up), the kernel's device time
      (launches queued behind a sleep kernel, so they run back to back: the
      two differ where the wrapper's host work per launch outlasts the
@@ -119,7 +122,32 @@ evaluation page — and checks them. Imports no jax and nothing of
      which must be well-formed with a finite pose of every body in every
      frame (one launch a step). The gym path of examples/rollout_demo.py
      is left out: gymnasium is not installed on the card's machine, so the
-     adapters are held by the CPU tests (tests/test_torch_gym_adapter.py).
+     adapters are held by the CPU tests (tests/test_torch_gym_adapter.py);
+ 15. the multi-process phase (`phase_mesh`): the parent makes the
+     references, then spawns two ranks sharing the card over gloo
+     (`parallel.mesh.spawn`; NCCL refuses two ranks on one GPU) that use the
+     kernel the parent built: (c) each rank's first control step of its
+     2048-env block of the learner's reset, against the single process's
+     4096 (obs within 1e-3); (a) `ppo.train(mesh=...)` at ppo.ANT_TAG, 2 x
+     2048 envs, cached, 3 epochs with a checkpoint each (rank 0 writes):
+     per rank and epoch the wall, rollout / update split and losses,
+     parameters bit-equal across the ranks after every epoch, metrics
+     equal, 16 launches a rank an epoch, parameters moved; (b) one epoch's
+     update on each rank's block of one single-process rollout at 4096 envs,
+     against the single process's update with shuffle_blocks=2 (parameters
+     within 5e-5, metrics 1e-4); the gloo all-reduce's host ms for PPO's flat
+     gradient and GRU-SAC's q / policy / logp; (d) `sac_rnn.train(mesh=...)`
+     at sac_rnn.ANT_TAG with PER (per_alpha 0.6, min_replay 4), 2 x 256
+     envs, 64 sequences a rank a grad step, 2 epochs: bit-equal parameters,
+     rank-local replay (capacity, L, 256, obs) and PER table (capacity,
+     256), 128 launches a rank an epoch; then phase 8's PPO once more in the
+     parent, beside the ranks' epochs;
+ 16. `graft_entry.entry()` once and `graft_entry.dryrun_multichip(2)` (its
+     five phases, two ranks over gloo on the card);
+ 17. one PPO epoch at ppo.ANT_TAG through a one-rank NCCL mesh against the
+     same epoch with no mesh and shuffle_blocks=1: policy and statistics
+     bit-equal (the NCCL code path; two ranks cannot share a card under it).
+Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
 A `[clock]` line after each phase gives its seconds and the seconds since
 the start. Then one JSON line with an entry per System (halfcheetah one per
 batch; each with its resident warps per SM), the card's name and power
@@ -132,6 +160,7 @@ at once.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -142,7 +171,7 @@ import time
 import numpy as np
 import torch
 
-from pobrax_tpu_torch import eval_tag_checkpoint
+from pobrax_tpu_torch import eval_tag_checkpoint, graft_entry
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
 from pobrax_tpu_torch.envs.ant import Ant
@@ -151,7 +180,9 @@ from pobrax_tpu_torch.envs.masks import VELOCITY
 from pobrax_tpu_torch.envs.planar import Halfcheetah
 from pobrax_tpu_torch.io import html
 from pobrax_tpu_torch.physics import step_tables, whole_step
+from pobrax_tpu_torch.parallel import mesh as pmesh
 from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
+from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
 from time_kernel import card_line, cuda_ms, device_ms
 
@@ -220,6 +251,16 @@ SAC_RADIUS = 20.0  # GRU-SAC's phase 0 visible radius
 # the GRU-SAC checkpoint's stochastic tag rate at radius 20, 256 episodes: JAX
 # recorded 0.8125; the binomial spread at 256 episodes is ~0.025
 MIN_SAC_TAG_RATE = 0.70
+# the multi-process phase: two ranks sharing the card over gloo (NCCL refuses
+# two ranks on one GPU); PPO at ppo.ANT_TAG (2 x 2048 envs), GRU-SAC at
+# sac_rnn.ANT_TAG (2 x 256 envs, 2 x 64 sequences a grad step) with PER from
+# the 4th sequence, as phase_per
+MESH_RANKS, MESH_BACKEND = 2, "gloo"
+MESH_PPO_EPOCHS, MESH_SAC_EPOCHS = 3, 2  # the first PPO epoch builds and warms up
+MESH_SAC = dataclasses.replace(sac_rnn.ANT_TAG, per_alpha=0.6, min_replay=4)
+GRU_SAC_RANK = f"{LEARNER},B={MESH_SAC.num_envs // MESH_RANKS}"  # a GRU-SAC rank's batch
+UPDATE_TOL = 5e-5  # parameters after an update on the same rollout (the learner tests')
+ALLREDUCE_REPS = 50
 
 
 def fail(msg: str) -> None:
@@ -498,8 +539,9 @@ def phase_learner_kernel_vs_plain(dev):
     at each batch the learner paths give it, from a reset plus 3 plain steps
     with a sixteenth of the ants against the +x wall (phase 3's share, 256
     of 4096), then at B=256 with every ant against it (held to
-    ALL_WALLED_MIN_AGREE). Returns the B=2048 inputs."""
-    out = None
+    ALL_WALLED_MIN_AGREE). Returns each batch's inputs (sys, qp, act, max
+    |err|) of its 1/16-walled case."""
+    out = {}
     cases = [(b, b * WALL_ENVS // B, MIN_AGREE) for b in LEARNER_BATCHES]
     for batch, walls, min_agree in cases + [(256, 256, ALL_WALLED_MIN_AGREE)]:
         env = create("ant_tag", episode_length=None, action_repeat=ACTION_REPEAT,
@@ -515,8 +557,7 @@ def phase_learner_kernel_vs_plain(dev):
                           min_agree)
         if walled == 0:
             fail(f"{LEARNER},B={batch}: no env touched a wall")
-        if out is None:
-            out = (sys_, qp, act, max_err)
+        out.setdefault(batch, (sys_, qp, act, max_err))
     return out
 
 
@@ -807,6 +848,333 @@ def phase_sac_checkpoint(dev, card: str) -> int:
              f"is below {MIN_SAC_TAG_RATE}")
     return launches
 
+# ---- the multi-process phase ------------------------------------------------
+
+
+def _digest(module) -> str:
+    """sha256 of a module's parameters: equal digests are bit-equal parameters."""
+    return hashlib.sha256(params_vector(module).cpu().numpy().tobytes()).hexdigest()
+
+
+class _SaveSpy:
+    """Wraps `checkpoint.save_step` (called by every rank after every epoch
+    when `checkpoint_every` is one epoch; rank 0 writes) to record each
+    save's parameter digest and replay / PER shapes."""
+
+    def __init__(self):
+        self.saves = []
+        self._save_step = ckpt.save_step
+
+    def __enter__(self):
+        def spy(root, step, ts, mesh=None):
+            buffer = getattr(ts, "buffer", None)
+            pri = getattr(ts, "priorities", None)
+            self.saves.append({
+                "digest": _digest(ts.params), "epochs": ts.epochs,
+                "buffer": None if buffer is None else {k: tuple(v.shape)
+                                                       for k, v in buffer.data.items()},
+                "priorities": None if pri is None else tuple(pri.shape),
+                "priorities_moved": None if pri is None else int((pri[pri > 0] != 1.0).sum())})
+            return self._save_step(root, step, ts, mesh)
+
+        ckpt.save_step = spy
+        return self
+
+    def __exit__(self, *exc):
+        ckpt.save_step = self._save_step
+
+
+def _digests(rank_result: dict, run: str) -> list:
+    """A rank's parameter digests after each epoch of one of its trains."""
+    return [save["digest"] for save in rank_result[run][3]]
+
+
+def _allreduce_ms(numel: int, mesh) -> float:
+    """Host ms per `psum` of `numel` float32s on the card over the mesh's
+    group (gloo copies through the host): ALLREDUCE_REPS back to back."""
+    x = torch.ones(numel, device=mesh.device)
+    for _ in range(5):
+        pmesh.psum(x, mesh)
+    torch.cuda.synchronize()
+    pmesh.barrier(mesh)
+    t0 = time.perf_counter()
+    for _ in range(ALLREDUCE_REPS):
+        pmesh.psum(x, mesh)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / ALLREDUCE_REPS
+
+
+def _timed_train(module, make_env, cfg, mesh, mode, epochs, per_epoch, ckpt_dir):
+    """`module.train(...)` on this rank with the launch counter set to 0
+    just before and read just after, a checkpoint every epoch (the spy's
+    record); -> (launches, per-epoch rows, inference params, saves)."""
+    rows, last = [], [0.0]
+
+    def progress(steps, m):
+        now = time.perf_counter()
+        rows.append({"wall_ms": (now - last[0]) * 1e3, **m})
+        last[0] = now
+
+    with _SaveSpy() as spy:
+        torch.cuda.synchronize()
+        whole_step.launches = 0
+        last[0] = time.perf_counter()
+        _, params, _ = module.train(make_env(), cfg, seed=0, mesh=mesh, progress_fn=progress,
+                                    autoreset_mode=mode, num_timesteps=epochs * per_epoch,
+                                    checkpoint_dir=ckpt_dir, checkpoint_every=per_epoch)
+        torch.cuda.synchronize()
+    return whole_step.launches, rows, [p.detach().cpu() for p in params[1].parameters()], \
+        spy.saves
+
+
+def mesh_rank(mesh, refs_path: str, ckpt_root: str) -> dict:
+    """One rank of the multi-process phase (the kernel is already built by
+    the parent): (c) its first control step, (a) `ppo.train(mesh=...)` at
+    ppo.ANT_TAG, (b) one epoch's update on its block of the parent's
+    rollout, the gloo all-reduce times, (d) `sac_rnn.train(mesh=...)` at
+    MESH_SAC. Returns what the parent checks."""
+    whole_step.load_library()
+    dev, cfg = mesh.device, ppo.ANT_TAG
+    refs = torch.load(refs_path, weights_only=True)
+    out = {"rank": mesh.rank, "world": mesh.data, "backend": mesh.backend,
+           "device": str(dev)}
+    local = cfg.num_envs // mesh.data
+    _, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)
+
+    # (c) the first control step of this rank's block of the reset
+    env = ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached", local)
+    state = ppo.reset_block(env, k_reset, cfg.num_envs, mesh)
+    act = jr.uniform(jr.PRNGKey(9, dev), (local, env.action_size), -1.0, 1.0,
+                     block=pmesh.draw_block(mesh))
+    out["first_obs"] = env.step(state, act).obs.cpu()
+
+    # (a) PPO on AntTag, the main path
+    per_epoch = cfg.unroll_length * cfg.num_envs * cfg.action_repeat
+    probe = ppo.PPOLearner(env, cfg, mesh)
+    out["ppo_initial"] = params_vector(probe.make_params(k_init).policy).cpu()
+    out["ppo"] = _timed_train(ppo, lambda: AntTagEnv(device=dev), cfg, mesh, "cached",
+                              MESH_PPO_EPOCHS, per_epoch, os.path.join(ckpt_root, "ppo"))
+
+    # (b) one epoch's update on this rank's block of the parent's rollout
+    learner = ppo.PPOLearner(env, cfg, mesh)
+    ts = learner.init(k_init)
+    blk = mesh.block(cfg.num_envs)
+    data = ppo.Transition(**{f: refs["rollout"][f][:, blk].to(dev)
+                             for f in ppo.Transition.__dataclass_fields__})
+    boot = refs["bootstrap"][blk].to(dev)
+    learner._rollout = lambda ts, env_state, key: (env_state, data, boot)
+    ts, _, m = learner.epoch(ts, state, refs["k_epoch"].to(dev))
+    out["update"] = (params_vector(ts.params).cpu(), {k: float(v) for k, v in m.items()})
+    numel = sum(p.numel() for p in ts.params.parameters())
+    out["allreduce_ms"] = {"ppo": (numel, _allreduce_ms(numel, mesh))}
+
+    # (d) GRU-SAC on AntTag at radius 20 with PER
+    sc = MESH_SAC
+    sac_epoch = sc.seqs_per_epoch * sc.seq_len * sc.num_envs * sc.action_repeat
+    out["gru_sac"] = _timed_train(sac_rnn, lambda: AntTagEnv(device=dev, visible_radius=SAC_RADIUS),
+                                  sc, mesh, "cached", MESH_SAC_EPOCHS, sac_epoch,
+                                  os.path.join(ckpt_root, "gru_sac"))
+    slearner = sac_rnn.RSACLearner(sac_rnn.wrap_for_training(
+        AntTagEnv(device=dev, visible_radius=SAC_RADIUS), sc, "cached", sc.num_envs // mesh.data),
+        sc, mesh)
+    sts = slearner.init(k_init)
+    out["allreduce_ms"]["gru_sac"] = {
+        net: (n, _allreduce_ms(n, mesh))
+        for net, n in (("q", sum(p.numel() for p in sts.params.q.parameters())),
+                       ("policy", sum(p.numel() for p in sts.params.policy.parameters())),
+                       ("logp", 1))}
+    return out
+
+
+def nccl_rank(mesh) -> dict:
+    """(f) one PPO epoch at ppo.ANT_TAG through a one-rank NCCL mesh and
+    without a mesh (shuffle_blocks=1): the policy and statistics must be
+    bit-equal."""
+    whole_step.load_library()
+    dev, cfg = mesh.device, ppo.ANT_TAG
+    per_epoch = cfg.unroll_length * cfg.num_envs * cfg.action_repeat
+    runs = {}
+    for name, m, c in (("plain", None, dataclasses.replace(cfg, shuffle_blocks=1)),
+                       ("mesh", mesh, cfg)):
+        hist = []
+        _, (norm, policy), _ = ppo.train(AntTagEnv(device=dev), c, seed=0, mesh=m,
+                                         autoreset_mode="cached", num_timesteps=per_epoch,
+                                         progress_fn=lambda s, mm: hist.append(mm))
+        runs[name] = (params_vector(policy).cpu(), norm.mean.cpu(), norm.std.cpu(),
+                      {k: hist[0][k] for k in ("total_loss", "policy_loss", "value_loss",
+                                               "entropy", "mean_reward")})
+    return {"backend": mesh.backend, "world": mesh.data, "device": str(dev), **runs}
+
+
+def phase_mesh(dev, card: str, tmp: str) -> int:
+    """The multi-process phase, (a)-(d) in one spawn of MESH_RANKS ranks
+    sharing the card over gloo: the parent makes the references (the
+    single-process first step at 4096 envs and one single-process epoch's
+    rollout and update with shuffle_blocks=2), the ranks run `mesh_rank`,
+    and the parent holds their results against the references and each
+    other. Returns the whole-step launches of the ranks' PPO trains (B=2048
+    each) and GRU-SAC trains (B=256 each)."""
+    cfg = ppo.ANT_TAG
+    _, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)
+    env = ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached")
+    state = env.reset(jr.split(k_reset, cfg.num_envs))
+    act = jr.uniform(jr.PRNGKey(9, dev), (cfg.num_envs, env.action_size), -1.0, 1.0)
+    first_obs = env.step(state, act).obs
+    # one single-process epoch with shuffle_blocks=2: its rollout, then its
+    # update on that rollout (test_torch_factory's split)
+    single = dataclasses.replace(cfg, shuffle_blocks=MESH_RANKS)
+    learner = ppo.PPOLearner(env, single)
+    ts = learner.init(k_init)
+    k_epoch = jr.PRNGKey(11, dev)
+    k_roll = jr.split(k_epoch, 3)[1]
+    _, data, boot = learner._rollout(ts, state, k_roll)
+    learner._rollout = lambda ts, env_state, key: (env_state, data, boot)
+    ts, _, want_m = learner.epoch(ts, state, k_epoch)
+    want_params = params_vector(ts.params)
+    refs_path = os.path.join(tmp, "mesh_refs.pt")
+    torch.save({"rollout": {f: getattr(data, f).cpu() for f in ppo.Transition.__dataclass_fields__},
+                "bootstrap": boot.cpu(), "k_epoch": k_epoch.cpu()}, refs_path)
+    del data, boot, learner, ts, env, state
+
+    t0 = time.perf_counter()
+    ranks = pmesh.spawn(mesh_rank, MESH_RANKS, MESH_BACKEND, dev.type, refs_path,
+                        os.path.join(tmp, "mesh_ckpt"), timeout=600)
+    print(f"[mesh] {MESH_BACKEND}, world {ranks[0]['world']}, ranks on "
+          f"{', '.join(r['device'] for r in ranks)} (one card shared): the ranks ran "
+          f"(c) first step, (a) PPO, (b) update, (d) GRU-SAC in {time.perf_counter() - t0:.1f} s, "
+          f"process start and CUDA set-up included", flush=True)
+    local = cfg.num_envs // MESH_RANKS
+
+    # (c)
+    err = max(float((r["first_obs"].to(dev) - first_obs[local * d:local * (d + 1)]).abs().max())
+              for d, r in enumerate(ranks))
+    print(f"[mesh:first-step] each rank's {local} envs against its block of the single "
+          f"process's {cfg.num_envs}: max |obs err| {err:.3e} (need <= {TOL_VEL:g})", flush=True)
+    if not err <= TOL_VEL:
+        fail("a rank's first control step differs from its block of the single process's")
+
+    # (a)
+    per_epoch = cfg.unroll_length * cfg.num_envs * cfg.action_repeat
+    launches = 0
+    for d, r in enumerate(ranks):
+        n, rows, policy, saves = r["ppo"]
+        launches += n
+        for e, row in enumerate(rows, 1):
+            print(f"[mesh:ppo] rank {d} epoch {e}: wall {row['wall_ms']:.1f} ms (rollout "
+                  f"{row['rollout_ms']:.1f} ms, update {row['update_ms']:.1f} ms), "
+                  f"{per_epoch / (row['wall_ms'] / 1e3):.1f} env-steps/s of both ranks' "
+                  f"{cfg.num_envs} envs; total_loss {row['total_loss']:.6f}, entropy "
+                  f"{row['entropy']:.6f}, mean_reward {row['mean_reward']:.6f}; {card}",
+                  flush=True)
+        if n != MESH_PPO_EPOCHS * cfg.unroll_length:
+            fail(f"mesh PPO: rank {d} launched the kernel {n} times, not "
+                 f"{MESH_PPO_EPOCHS * cfg.unroll_length}")
+        if len(rows) != MESH_PPO_EPOCHS or not all(
+                np.isfinite(row[k]) for row in rows for k in ("total_loss", "policy_loss",
+                                                              "value_loss", "entropy")):
+            fail(f"mesh PPO: rank {d} ran {len(rows)} epochs, or a loss is not finite")
+        moved = float((torch.cat([p.reshape(-1) for p in policy]) - r["ppo_initial"]).abs().max())
+        if not np.isfinite(moved) or moved == 0.0:
+            fail(f"mesh PPO: rank {d}'s parameters did not move")
+    metric = ("total_loss", "policy_loss", "value_loss", "entropy", "mean_reward")
+    same_params = all(_digests(r, "ppo") == _digests(ranks[0], "ppo") for r in ranks)
+    same_metrics = all([{k: row[k] for k in metric} for row in r["ppo"][1]]
+                       == [{k: row[k] for k in metric} for row in ranks[0]["ppo"][1]]
+                       for r in ranks)
+    warm = [row["wall_ms"] for row in ranks[0]["ppo"][1][1:]]
+    print(f"[mesh:ppo] {MESH_RANKS} ranks x {local} envs, {MESH_PPO_EPOCHS} epochs: parameters "
+          f"bit-equal across the ranks after every epoch: {same_params}; metrics equal: "
+          f"{same_metrics}; whole-step launches {launches}; env-steps/s after the first epoch "
+          f"{per_epoch * len(warm) / (sum(warm) / 1e3):.1f}; {card}", flush=True)
+    if not (same_params and same_metrics and len(ranks[0]["ppo"][3]) == MESH_PPO_EPOCHS):
+        fail("mesh PPO: the ranks' parameters or metrics differ")
+
+    # (b)
+    diff = float((ranks[0]["update"][0].to(dev) - want_params).abs().max())
+    rank_equal = all(torch.equal(r["update"][0], ranks[0]["update"][0]) for r in ranks)
+    rel = max(abs(ranks[0]["update"][1][k] - float(want_m[k])) / max(abs(float(want_m[k])), 1e-6)
+              for k in metric)
+    print(f"[mesh:update] one epoch's update on the single process's rollout: the ranks' "
+          f"parameters against the single process's (shuffle_blocks={MESH_RANKS}) max |diff| "
+          f"{diff:.3e} (need <= {UPDATE_TOL:g}); bit-equal across the ranks: {rank_equal}; "
+          f"metrics max relative diff {rel:.3e} (need <= 1e-4)", flush=True)
+    if not (diff <= UPDATE_TOL and rank_equal and rel <= 1e-4):
+        fail("mesh PPO: the ranks' update disagrees with the single process's")
+
+    # the gloo all-reduces, per minibatch / grad step
+    n, ms = ranks[0]["allreduce_ms"]["ppo"]
+    print(f"[mesh:allreduce] gloo, {MESH_RANKS} ranks on one card: PPO's flat gradient "
+          f"({n} float32, {n * 4 / 1e6:.2f} MB) {ms:.4f} ms an all-reduce, one a minibatch "
+          f"(+2 scalars for the advantages); {card}", flush=True)
+    parts = ranks[0]["allreduce_ms"]["gru_sac"]
+    print(f"[mesh:allreduce] GRU-SAC per grad step: " + ", ".join(
+        f"{k} {v[0]} float32 {v[1]:.4f} ms" for k, v in parts.items())
+        + f"; {sum(v[1] for v in parts.values()):.4f} ms in all; {card}", flush=True)
+
+    # (d)
+    sc = MESH_SAC
+    sac_launches = 0
+    for d, r in enumerate(ranks):
+        n, rows, _, saves = r["gru_sac"]
+        sac_launches += n
+        for e, row in enumerate(rows, 1):
+            print(f"[mesh:gru_sac] rank {d} epoch {e}: wall {row['wall_ms']:.1f} ms (collect "
+                  f"{row['rollout_ms']:.1f} ms, update {row['update_ms']:.1f} ms); q_loss "
+                  f"{row['q_loss']:.6f}, actor_loss {row['actor_loss']:.6f}, alpha "
+                  f"{row['alpha']:.6f}; replay {saves[e - 1]['buffer']['obs']}, PER table "
+                  f"{saves[e - 1]['priorities']} ({saves[e - 1]['priorities_moved']} moved off "
+                  f"1.0); {card}", flush=True)
+        cols = sc.num_envs // MESH_RANKS
+        want_obs = (sc.replay_capacity, sc.seq_len, cols, first_obs.shape[-1])
+        if n != MESH_SAC_EPOCHS * sc.seqs_per_epoch * sc.seq_len:
+            fail(f"mesh GRU-SAC: rank {d} launched the kernel {n} times")
+        if any(s["buffer"]["obs"] != want_obs or s["priorities"] != (sc.replay_capacity, cols)
+               for s in saves):
+            fail(f"mesh GRU-SAC: rank {d}'s replay or PER table is not rank-local")
+        if not all(np.isfinite(row[k]) for row in rows for k in ("q_loss", "actor_loss")) \
+                or not rows[-1]["q_loss"] > 0 or not saves[-1]["priorities_moved"]:
+            fail(f"mesh GRU-SAC: rank {d}: a non-finite loss, no gradient step or no PER "
+                 f"write-back")
+    same = all(_digests(r, "gru_sac") == _digests(ranks[0], "gru_sac") for r in ranks)
+    print(f"[mesh:gru_sac] {MESH_RANKS} ranks x {sc.num_envs // MESH_RANKS} envs, "
+          f"{sc.batch_size // MESH_RANKS} sequences a rank a grad step, PER: parameters "
+          f"bit-equal across the ranks after every epoch: {same}; whole-step launches "
+          f"{sac_launches}", flush=True)
+    if not same:
+        fail("mesh GRU-SAC: the ranks' parameters differ")
+    return launches, sac_launches
+
+
+def phase_dryrun(dev, card: str) -> None:
+    """(e) `graft_entry.entry()` once and `dryrun_multichip(2)` on the card."""
+    fn, args = graft_entry.entry(dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(f"[graft] entry ok: obs {tuple(out.obs.shape)}, finite "
+          f"{bool(torch.isfinite(out.obs).all())}", flush=True)
+    t0 = time.perf_counter()
+    results = graft_entry.dryrun_multichip(MESH_RANKS, device=dev.type, backend=MESH_BACKEND,
+                                           timeout=300)
+    print(f"[mesh] {MESH_BACKEND}, world {MESH_RANKS}: dryrun_multichip's {len(results[0])} "
+          f"phases in {time.perf_counter() - t0:.1f} s, metrics equal across the ranks; {card}",
+          flush=True)
+    if not bool(torch.isfinite(out.obs).all()):
+        fail("graft entry: non-finite observations")
+
+
+def phase_nccl(dev, card: str) -> None:
+    """(f) the NCCL code path at world size 1."""
+    r = pmesh.spawn(nccl_rank, 1, "nccl", dev.type, timeout=300)[0]
+    equal = all(torch.equal(a, b) for a, b in zip(r["plain"][:3], r["mesh"][:3]))
+    print(f"[mesh] nccl, world {r['world']} on {r['device']}: one PPO epoch at "
+          f"ppo.ANT_TAG through the mesh against no mesh (shuffle_blocks=1): policy and "
+          f"statistics bit-equal: {equal} (max |diff| "
+          f"{float((r['plain'][0] - r['mesh'][0]).abs().max()):.3e}); metrics equal: "
+          f"{r['plain'][3] == r['mesh'][3]}; {card}", flush=True)
+    if not equal or r["backend"] != "nccl":
+        fail("the one-rank NCCL mesh's epoch differs from the plain one")
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -854,13 +1222,17 @@ def main() -> None:
     # and its 4096-env case is timed beside it
     timed_only = {"ant": compared["ant"]}
     compared["ant"] = phase_stock_kernel_vs_plain(dev, "ant", sac.ANT.num_envs)
-    compared[LEARNER] = phase_learner_kernel_vs_plain(dev)
+    learner_cases = phase_learner_kernel_vs_plain(dev)
+    compared[LEARNER] = learner_cases[2048]
+    # a GRU-SAC rank of the multi-process phase steps 256 envs: an entry of its own
+    compared[GRU_SAC_RANK] = learner_cases[MESH_SAC.num_envs // MESH_RANKS]
+    warps[GRU_SAC_RANK] = warps[LEARNER]
     lap("kernel-vs-plain:ant at SAC's batch, the learners' System")
     for path in FIXTURES:
         phase_fixture(dev, path)
         lap(f"fixture:{os.path.basename(path)}")
     launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
-    phase_main(dev, "ant_tag", "naive", card)
+    phase_main(dev, "ant_tag", "naive", card, steps=OTHER_STEPS)
     for name in MASKED_MAIN:
         launches[name] = phase_main(dev, name, "cached", card, masked=True)
     for name in MASKED_OTHER:
@@ -892,6 +1264,17 @@ def main() -> None:
                           + phase_per(dev, card, PER_EPOCHS)
                           + phase_sac_checkpoint(dev, card))
     lap("sac, gru_sac, per, sac checkpoint")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_ppo, launches[GRU_SAC_RANK] = phase_mesh(dev, card, tmp)
+    launches[LEARNER] += mesh_ppo
+    lap("mesh: first step, PPO, update, GRU-SAC (2 ranks, gloo)")
+    # the single process again after the ranks: its epochs beside theirs
+    launches[LEARNER] += phase_train(dev, card, "ppo")[0]
+    lap("train:ppo, after the ranks")
+    phase_dryrun(dev, card)
+    lap("mesh: graft entry, dryrun_multichip (2 ranks, gloo)")
+    phase_nccl(dev, card)
+    lap("mesh: one-rank nccl")
 
     entries = []
     cases = [(name, case, True) for name, case in compared.items()]

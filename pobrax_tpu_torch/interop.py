@@ -23,8 +23,9 @@ alpha Adam states, normalizer, epochs, and the replay buffer and PER table
 where present) — with flax's (in, out) kernels transposed into torch
 weights, the GRU's (r, z, n) gates stacked as `nn.GRUCell` stacks them, and
 Adam's flat moments re-sliced from JAX's leaf order into the port's
-parameter order; `training_state_to_numpy` is the inverse, and
-`params_checksum` fingerprints a JAX parameter tree.
+parameter order; `training_state_to_numpy` is the inverse,
+`shard_training_state` cuts a state into one rank's piece of a 'data' mesh,
+and `params_checksum` fingerprints a JAX parameter tree.
 
 Nothing here imports jax: the leaves are read as numpy arrays.
 """
@@ -413,6 +414,36 @@ def training_state_from_numpy(state: Any, learner, key: Optional[torch.Tensor] =
         for f in dataclasses.fields(RunningStatisticsState)})
     ts.epochs = int(np.asarray(_get(state, "epochs")))
     return ts
+
+
+def shard_training_state(state: Any, rank: int, n: int) -> Dict[str, Any]:
+    """Rank `rank` of `n`'s piece of a JAX training state (as
+    `training_state_from_numpy` takes it), laid out as the JAX learners lay
+    it on a 'data' mesh of n devices: parameters, optimizer states, the
+    normaliser and the epoch count replicated (as they are); the replay
+    buffer's env-column axis and the PER table's column axis cut to block
+    `rank` (SAC's `P(None, 'data')` over (capacity, B, ...); GRU-SAC's
+    `P(None, None, 'data')` over (capacity, L, B, ...), its h0 and PER table
+    `P(None, 'data')` over (capacity, B, ...))."""
+    def block(x, axis):
+        x = np.asarray(x)
+        size = x.shape[axis] // n
+        return np.take(x, np.arange(rank * size, (rank + 1) * size), axis=axis)
+
+    out = (dict(state) if isinstance(state, dict)
+           else {f.name: getattr(state, f.name) for f in dataclasses.fields(state)})
+    buffer = out.get("buffer")
+    if buffer is not None:
+        data = _get(buffer, "data")
+        sequences = "h0" in data  # GRU-SAC: (capacity, L, B, ...) but h0 (capacity, B, H)
+        out["buffer"] = {"data": {k: block(v, 2 if sequences and k != "h0" else 1)
+                                  for k, v in data.items()},
+                         "insert_pos": _get(buffer, "insert_pos"),
+                         "size": _get(buffer, "size")}
+    pri = out.get("priorities")
+    if pri is not None and np.size(pri):
+        out["priorities"] = block(pri, 1)
+    return out
 
 
 def training_state_to_numpy(ts) -> Dict[str, Any]:

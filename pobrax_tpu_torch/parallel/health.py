@@ -27,6 +27,8 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from pobrax_tpu_torch.parallel.mesh import local_rank
+
 DEFAULT_DEADLINE_S = 1800.0  # the learners' `train(..., watchdog_deadline_s=)` default
 
 
@@ -48,6 +50,8 @@ def ping() -> int:
     local = torch.cuda.device_count() or 1  # the host counts as one device
     if not _distributed() or dist.get_world_size() == 1:
         return local
+    if dist.get_backend() == "nccl":
+        torch.cuda.set_device(local_rank())  # all_gather_object stages on the current card
     gathered = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, local)
     return int(sum(gathered))

@@ -19,7 +19,7 @@ int64 with `& 0xFFFFFFFF`, because CPU torch's uint32 support is thin.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -53,20 +53,33 @@ def PRNGKey(seed: int, device: Optional[Union[str, torch.device]] = None) -> tor
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64, device=device)
 
 
-def _counters(shape: Sequence[int], device) -> torch.Tensor:
+Block = Optional[Tuple[int, int, int]]
+
+
+def _counters(shape: Sequence[int], device, block: Block = None) -> torch.Tensor:
     # the low word of a flat iota over `shape`; the high word is 0 for every
-    # size this module is used at (< 2**32 draws)
+    # size this module is used at (< 2**32 draws). With block = (axis, i, n),
+    # `shape` is block i of n equal blocks along `axis` of the global shape,
+    # and the counters are that block's part of the global iota
+    shape = tuple(int(d) for d in shape)
+    full = list(shape)
+    if block is not None:
+        axis, index, count = block
+        full[axis] *= count
     n = 1
-    for d in shape:
-        n *= int(d)
-    return torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
+    for d in full:
+        n *= d
+    iota = torch.arange(n, dtype=torch.int64, device=device).reshape(full)
+    if block is not None:
+        iota = iota.narrow(axis, index * shape[axis], shape[axis])
+    return iota
 
 
-def _bits_pair(key: torch.Tensor, shape: Sequence[int]):
+def _bits_pair(key: torch.Tensor, shape: Sequence[int], block: Block = None):
     expand = (Ellipsis,) + (None,) * len(shape)
     k1 = key[..., 0][expand]
     k2 = key[..., 1][expand]
-    lo = _counters(shape, key.device)
+    lo = _counters(shape, key.device, block)
     return threefry2x32(k1, k2, torch.zeros_like(lo), lo)
 
 
@@ -84,9 +97,12 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([x0, x1], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
-    """32 random bits per element, (..., *shape), values in [0, 2**32)."""
-    b1, b2 = _bits_pair(key, shape)
+def random_bits(key: torch.Tensor, shape: Sequence[int] = (), block: Block = None) -> torch.Tensor:
+    """32 random bits per element, (..., *shape), values in [0, 2**32).
+    `block` = (axis, i, n): the draw is block i of n along `axis` of the
+    draw of the global shape (shape[axis] * n there), bit for bit; only the
+    block is computed."""
+    b1, b2 = _bits_pair(key, shape, block)
     return b1 ^ b2
 
 
@@ -100,10 +116,11 @@ def _bound(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0, maxval=1.0) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape: Sequence[int] = (), minval=0.0, maxval=1.0,
+            block: Block = None) -> torch.Tensor:
     """`jax.random.uniform` in float32; `minval`/`maxval` broadcast against
-    `shape` (trailing axes), as in jax."""
-    bits = random_bits(key, shape)
+    `shape` (trailing axes), as in jax. `block`: see `random_bits`."""
+    bits = random_bits(key, shape, block)
     # 23 random mantissa bits under the exponent of 1.0 -> [1, 2) -> [0, 1)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = fbits.view(torch.float32) - 1.0
@@ -140,11 +157,12 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     return p.float() * x
 
 
-def normal(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: Sequence[int] = (), block: Block = None) -> torch.Tensor:
     """`jax.random.normal` in float32: sqrt(2) erfinv(u) for u uniform on
     [nextafter(-1, 0), 1). The uniform draw is bit-exact; the result agrees
-    with jax to <= 1e-6 (see `erf_inv`)."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    with jax to <= 1e-6 (see `erf_inv`). `block`: see `random_bits` (a
+    rank's rows of a draw over every rank's)."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, block)
     return _SQRT2 * erf_inv(u)
 
 

@@ -8,7 +8,9 @@ except the replay buffer and its priority table, which the off-policy
 learners refill on resume, as the JAX package's `_ckpt_slice` leaves them
 out. `restore` loads it into a template from the same learner's `init`, on
 the template's device. `latest_step_dir` / `save_step` keep the JAX package's
-`root/step_000001000` layout. `load_npz` reads a JAX training state exported
+`root/step_000001000` layout; under a mesh only rank 0 writes (as the JAX
+package's "only process 0 writes") and every rank waits for it at a barrier,
+and every rank restores. `load_npz` reads a JAX training state exported
 to numpy (`tools/export_torch_checkpoint.py`); `interop` turns it into the
 port's state.
 """
@@ -22,6 +24,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from pobrax_tpu_torch.parallel.mesh import barrier
 
 _FILE = "state.pt"
 
@@ -72,9 +76,13 @@ def latest_step_dir(root: str) -> Optional[str]:
     return os.path.join(root, steps[-1]) if steps else None
 
 
-def save_step(root: str, step: int, ts) -> str:
+def save_step(root: str, step: int, ts, mesh=None) -> str:
+    """Save `ts` under `root/step_<step>`; with a `mesh`, rank 0 writes and
+    the ranks meet at a barrier after it."""
     path = os.path.join(root, f"step_{step:012d}")
-    save(path, ts)
+    if mesh is None or mesh.rank == 0:
+        save(path, ts)
+    barrier(mesh)
     return path
 
 

@@ -35,10 +35,14 @@ class NormalTanhDistribution:
         loc, scale = params.chunk(2, dim=-1)
         return loc, F.softplus(scale) + self.min_std
 
-    def sample_no_postprocess(self, params: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
-        """Pre-tanh sample (the value whose log-prob is cheap to evaluate)."""
+    def sample_no_postprocess(self, params: torch.Tensor, key: torch.Tensor,
+                              block=None) -> torch.Tensor:
+        """Pre-tanh sample (the value whose log-prob is cheap to evaluate).
+        `block` = (axis, i, n): `params` is block i of n along `axis` of a
+        global batch, and the noise is that block of the global draw
+        (`random.normal`)."""
         loc, scale = self._split(params)
-        return loc + scale * jr.normal(key, loc.shape)
+        return loc + scale * jr.normal(key, loc.shape, block)
 
     def sample(self, params: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
         return self.postprocess(self.sample_no_postprocess(params, key))
@@ -60,9 +64,10 @@ class NormalTanhDistribution:
         base = -0.5 * torch.square((pre_tanh - loc) / scale) - torch.log(scale) - 0.5 * _LOG_2PI
         return torch.sum(base - self._log_det_tanh(pre_tanh), dim=-1)
 
-    def entropy(self, params: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
-        """Analytic normal entropy plus a sampled tanh correction."""
+    def entropy(self, params: torch.Tensor, key: torch.Tensor, block=None) -> torch.Tensor:
+        """Analytic normal entropy plus a sampled tanh correction (`block`:
+        see `sample_no_postprocess`)."""
         loc, scale = self._split(params)
         normal_ent = 0.5 * math.log(2.0 * math.pi * math.e) + torch.log(scale)
-        x = loc + scale * jr.normal(key, loc.shape)
+        x = loc + scale * jr.normal(key, loc.shape, block)
         return torch.sum(normal_ent + self._log_det_tanh(x), dim=-1)

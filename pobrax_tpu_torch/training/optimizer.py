@@ -8,7 +8,9 @@ The update concatenates the gradients of every parameter (in
 Adam's moments and bias correction on it, and adds the result to the
 parameters in place. `AdamState.mu` / `nu` are that flat vector's moments;
 `pobrax_tpu_torch.interop` maps them to and from the JAX package's flat
-order.
+order. Under a mesh the vector is averaged over the ranks first, in one
+all-reduce before the clip: what JAX's gradient psum under a 'data'-sharded
+jit, or its `pmean` under `shard_map`, gives the optimizer.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+
+from pobrax_tpu_torch.parallel.mesh import pmean
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -48,12 +52,13 @@ class Optimizer:
         return AdamState(count=0, mu=torch.zeros(n, device=p.device),
                          nu=torch.zeros(n, device=p.device))
 
-    def step(self, module: nn.Module, state: AdamState) -> AdamState:
+    def step(self, module: nn.Module, state: AdamState, mesh=None) -> AdamState:
         """Apply one update from the parameters' `.grad` (missing grads count
-        as zero) and return the new state."""
+        as zero) and return the new state; with a `mesh`, from their mean
+        over its ranks."""
         params = list(module.parameters())
-        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                       for p in params])
+        g = pmean(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                             for p in params]), mesh)
         if self.max_grad_norm is not None:
             g_norm = torch.sqrt(torch.sum(g * g))
             clip = g_norm >= self.max_grad_norm

@@ -20,7 +20,26 @@ resumes from `checkpoint_dir` by folding the epoch count into the key.
 
 The learner runs on its env's device (the envs resolve `device`: the card
 unless named). Parameters live in `nn.Module`s and are updated in place.
-Not ported here: `mesh` (data-parallel sharding), ROADMAP §1 item 3.
+
+Data parallelism (`mesh`, `parallel/mesh.py`): JAX jits the epoch with the
+env batch on 'data' and everything else replicated, one global program, so a
+D-device run computes what one device computes with `shuffle_blocks=D`.
+The port keeps those global semantics with each rank holding
+`num_envs / D` envs (its block of the global batch, reset from its block of
+`split(k_reset, num_envs)`):
+  * every draw is the global draw: the rollout's action noise and the
+    entropy's sample are the rank's rows of the global normal draw
+    (`random`'s `block`), the minibatch indices the global
+    `minibatch_indices` with `shuffle_blocks = D`, of which rank d takes
+    columns [d S, (d + 1) S) of each row, all from its own env block;
+  * advantage normalisation uses the global minibatch's mean and population
+    std (two all-reduces a minibatch), the observation statistics the global
+    rollout (`running_statistics.update(..., mesh)`);
+  * each rank's loss is the mean over its equal share of the minibatch, so
+    the mean of the ranks' gradients (`Optimizer.step(..., mesh)`, one
+    all-reduce before the clip) is the global loss's gradient, and the
+    parameters stay bit-equal across ranks;
+  * the metrics are averaged over the ranks once an epoch.
 """
 
 from __future__ import annotations
@@ -37,6 +56,7 @@ from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models import networks
 from pobrax_tpu_torch.parallel import health
+from pobrax_tpu_torch.parallel.mesh import Mesh, draw_block, pmean
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import running_statistics
 from pobrax_tpu_torch.training.distribution import NormalTanhDistribution
@@ -194,11 +214,20 @@ class _PhaseClock:
 class LearnerBase:
     """What both learners share: the env, the distribution, the optimizer,
     the training state's init, observation normalisation, one minibatch
-    update and the rollout's targets."""
+    update and the rollout's targets. `env` holds this rank's envs under a
+    `mesh` (`cfg.num_envs / D` of them), all of them without one."""
 
-    def __init__(self, env: Env, cfg):
+    # the axis of a minibatch's policy outputs that holds its envs (the
+    # entropy's draw is sliced there under a mesh)
+    env_axis = 0
+
+    def __init__(self, env: Env, cfg, mesh: Optional[Mesh] = None):
         self.env = env
         self.cfg = cfg
+        self.mesh = mesh
+        self.n_shards = mesh.data if mesh is not None else 1
+        if cfg.num_envs % self.n_shards:
+            raise ValueError("num_envs must divide over the mesh 'data' axis")
         self.device = env.device
         self.action_size = env.action_size
         self.obs_size = env.observation_size
@@ -238,13 +267,18 @@ class LearnerBase:
         log_prob = self.dist.log_prob(dist_params, data.action)
         ratio = torch.exp(log_prob - data.log_prob)
         if cfg.normalize_advantages:
-            advantages = (advantages - advantages.mean()) / (advantages.std(correction=0) + 1e-8)
+            # the global minibatch's mean and population std (jnp.std's two
+            # passes); the ranks' shares are equal, so means of means
+            mean = pmean(advantages.mean(), self.mesh)
+            std = torch.sqrt(pmean(torch.square(advantages - mean).mean(), self.mesh))
+            advantages = (advantages - mean) / (std + 1e-8)
         unclipped = ratio * advantages
         clipped = torch.clamp(ratio, 1.0 - cfg.clipping_epsilon,
                               1.0 + cfg.clipping_epsilon) * advantages
         policy_loss = -torch.mean(torch.minimum(unclipped, clipped))
         value_loss = 0.5 * torch.mean(torch.square(returns - value))
-        entropy = torch.mean(self.dist.entropy(dist_params, key))
+        entropy = torch.mean(self.dist.entropy(dist_params, key,
+                                               draw_block(self.mesh, self.env_axis)))
         total = policy_loss + value_loss - cfg.entropy_cost * entropy
         return total, {"total_loss": total, "policy_loss": policy_loss,
                        "value_loss": value_loss, "entropy": entropy}
@@ -254,7 +288,7 @@ class LearnerBase:
         ts.params.zero_grad(set_to_none=True)
         total, metrics = self._loss(ts.params, *loss_args, key)
         total.backward()
-        ts.opt_state = self.optimizer.step(ts.params, ts.opt_state)
+        ts.opt_state = self.optimizer.step(ts.params, ts.opt_state, self.mesh)
         return {k: v.detach() for k, v in metrics.items()}
 
     def _rollout_and_targets(self, ts, env_state, k_roll, *rollout_args):
@@ -268,7 +302,7 @@ class LearnerBase:
                                           self.cfg.gae_lambda)
         normalizer = ts.normalizer
         if self.cfg.normalize_observations:
-            normalizer = running_statistics.update(normalizer, data.obs)
+            normalizer = running_statistics.update(normalizer, data.obs, self.mesh)
             data = data.replace(obs=running_statistics.normalize(normalizer, data.obs))
         return out[:-2], data, advantages, returns, normalizer
 
@@ -276,10 +310,15 @@ class LearnerBase:
 class PPOLearner(LearnerBase):
     """The epoch of feed-forward PPO for a wrapped (batched) env."""
 
-    def __init__(self, env: Env, cfg: PPOConfig):
-        super().__init__(env, cfg)
+    def __init__(self, env: Env, cfg: PPOConfig, mesh: Optional[Mesh] = None):
+        super().__init__(env, cfg, mesh)
         self.net_dtype = torch.bfloat16 if cfg.network_dtype == "bfloat16" else None
         self.shuffle_blocks = cfg.shuffle_blocks
+        if mesh is not None:
+            if self.shuffle_blocks not in (None, mesh.data):
+                raise ValueError("under a mesh shuffle_blocks must be the 'data' axis size, "
+                                 "so that every rank's minibatch share is its own envs'")
+            self.shuffle_blocks = mesh.data
         if self.shuffle_blocks is not None:
             per_block = cfg.unroll_length * cfg.num_envs // self.shuffle_blocks
             if cfg.num_envs % self.shuffle_blocks or per_block % cfg.num_minibatches:
@@ -330,7 +369,7 @@ class PPOLearner(LearnerBase):
         for _ in range(self.cfg.unroll_length):
             key, k_sample = _split2(key)
             dp = self._policy_params_fn(ts.params, ts.normalizer, env_state.obs)
-            pre_tanh = self.dist.sample_no_postprocess(dp, k_sample)
+            pre_tanh = self.dist.sample_no_postprocess(dp, k_sample, draw_block(self.mesh))
             nstate = self.env.step(env_state, self.dist.postprocess(pre_tanh))
             obs.append(env_state.obs)
             pre.append(pre_tanh)
@@ -373,7 +412,9 @@ class PPOLearner(LearnerBase):
         with torch.enable_grad():
             for _ in range(cfg.num_update_epochs):
                 k_sgd, k_perm, k_mb = jr.split(k_sgd, 3).unbind(-2)
-                idx = minibatch_indices(k_perm, T, B, M, self.shuffle_blocks)
+                idx = minibatch_indices(k_perm, T, B * self.n_shards, M, self.shuffle_blocks)
+                if self.mesh is not None:
+                    idx = local_indices(idx, B, self.mesh)
                 for m in range(M):
                     k_mb, k_loss = _split2(k_mb)
                     mb = [x[idx[m]] for x in payload]
@@ -382,13 +423,26 @@ class PPOLearner(LearnerBase):
         self.clock.mark()
         ts = TrainingState(params=ts.params, opt_state=ts.opt_state, normalizer=normalizer,
                            epochs=ts.epochs + 1)
-        return ts, env_state, _mean_metrics(metrics, data.reward, cfg.reward_scaling)
+        return ts, env_state, _mean_metrics(metrics, data.reward, cfg.reward_scaling,
+                                            self.mesh)
 
 
-def _mean_metrics(metrics, reward, reward_scaling) -> Dict[str, torch.Tensor]:
-    out = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
-    out["mean_reward"] = reward.mean() / reward_scaling
-    return out
+def local_indices(idx: torch.Tensor, B: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's share of global minibatch indices into a (T, B * D)
+    rollout made with `blocks = D`: columns [d S, (d + 1) S) of each row,
+    which all lie in env block d, as indices into the rank's own (T, B)
+    rollout."""
+    cols = idx[:, mesh.block(idx.shape[1])]
+    return (cols // (B * mesh.data)) * B + cols % (B * mesh.data) - mesh.rank * B
+
+
+def _mean_metrics(metrics, reward, reward_scaling, mesh=None) -> Dict[str, torch.Tensor]:
+    """The epoch's mean metrics; under a mesh averaged over the ranks (one
+    all-reduce: every rank's share of each minibatch is equal)."""
+    names = list(metrics[0])
+    out = torch.stack([torch.stack([m[k] for m in metrics]).mean() for k in names]
+                      + [reward.mean() / reward_scaling])
+    return dict(zip(names + ["mean_reward"], pmean(out, mesh).unbind()))
 
 
 def evaluate(env: Env, inference_fn: Callable, params_tuple, num_episodes: int = 32,
@@ -421,15 +475,27 @@ def evaluate(env: Env, inference_fn: Callable, params_tuple, num_episodes: int =
             "eval/mean_length": float(length.mean())}
 
 
-def wrap_for_training(env: Env, cfg, autoreset_mode: str) -> Env:
-    """ActionRepeat -> Episode -> Vmap -> randomised autoreset, as the JAX
-    `train`s stack them."""
+def wrap_for_training(env: Env, cfg, autoreset_mode: str, batch: Optional[int] = None) -> Env:
+    """ActionRepeat -> Episode -> Vmap (`batch` envs, cfg.num_envs unless
+    named) -> randomised autoreset, as the JAX `train`s stack them."""
     from pobrax_tpu_torch.envs import wrappers
 
     wrapped = wrappers.ActionRepeatWrapper(env, cfg.action_repeat)
     wrapped = wrappers.EpisodeWrapper(wrapped, cfg.episode_length, 1)
-    wrapped = wrappers.VmapWrapper(wrapped, batch_size=cfg.num_envs)
+    wrapped = wrappers.VmapWrapper(wrapped, batch_size=batch or cfg.num_envs)
     return wrappers.randomized_autoreset(wrapped, autoreset_mode)
+
+
+def local_batch(cfg, mesh: Optional[Mesh]) -> int:
+    """This rank's envs: cfg.num_envs over the mesh's 'data' axis."""
+    return cfg.num_envs // (mesh.data if mesh is not None else 1)
+
+
+def reset_block(env: Env, key: torch.Tensor, num_envs: int, mesh: Optional[Mesh]) -> State:
+    """`env.reset` of this rank's block of `split(key, num_envs)`: its envs
+    of the single-process reset."""
+    keys = jr.split(key, num_envs)
+    return env.reset(keys if mesh is None else keys[mesh.block(num_envs)])
 
 
 def resume(ts, key: torch.Tensor, checkpoint_dir: Optional[str],
@@ -464,7 +530,12 @@ def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
     metrics to host floats, which waits for the card, as JAX's beat follows
     `block_until_ready(metrics)`: one sync a call, the one `progress_fn`
     needs anyway, made also without a `progress_fn` while the watchdog runs.
+    Under a mesh of more than one rank every rank `health.ping()`s at the
+    start and before each checkpoint (a dead peer becomes a hang the
+    watchdog reports), and only rank 0 writes the checkpoint.
     -> (ts, carry, history)."""
+    mesh = learner.mesh
+    several = mesh is not None and mesh.data > 1
     per_call = learner.steps_per_epoch * epochs_per_call
     history = []
     t0 = time.perf_counter()
@@ -472,6 +543,8 @@ def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
     wd = (health.Watchdog(deadline_s=watchdog_deadline_s).start_monitor()
           if watchdog_deadline_s else None)
     try:
+        if several:
+            health.ping()  # startup liveness barrier: all peers present
         for i in range(num_calls):
             call_metrics = []
             for _ in range(epochs_per_call):
@@ -492,7 +565,9 @@ def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
                 progress_fn(total_steps, metrics)
             if checkpoint_dir is not None and (total_steps - last_ckpt >= checkpoint_every
                                                or i == num_calls - 1):
-                ckpt.save_step(checkpoint_dir, total_steps, ts)
+                if several:
+                    health.ping()  # peers alive before the save's barrier
+                ckpt.save_step(checkpoint_dir, total_steps, ts, mesh)
                 last_ckpt = total_steps
     finally:
         if wd is not None:
@@ -501,6 +576,7 @@ def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
 
 
 def train(env: Env, cfg: Optional[PPOConfig] = None, seed: int = 0,
+          mesh: Optional[Mesh] = None,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1_000_000,
           autoreset_mode: str = "naive",
@@ -512,14 +588,17 @@ def train(env: Env, cfg: Optional[PPOConfig] = None, seed: int = 0,
     `autoreset_mode` 'naive' (a fresh reset every step, reference parity) or
     'cached'. With `checkpoint_dir` the state is saved every
     `checkpoint_every` env-steps and at the end, and training resumes from
-    the latest step dir there. `watchdog_deadline_s`: see `run_epochs`."""
+    the latest step dir there. With `mesh` this process trains its block of
+    `num_envs` as one rank of the data-parallel run (module docstring);
+    `num_envs` and the reported env-steps stay global.
+    `watchdog_deadline_s`: see `run_epochs`."""
     cfg = dataclasses.replace(cfg or PPOConfig(), **cfg_overrides)
-    wrapped = wrap_for_training(env, cfg, autoreset_mode)
-    learner = PPOLearner(wrapped, cfg)
+    wrapped = wrap_for_training(env, cfg, autoreset_mode, local_batch(cfg, mesh))
+    learner = PPOLearner(wrapped, cfg, mesh)
     key, k_init, k_reset = jr.split(jr.PRNGKey(seed, wrapped.device), 3).unbind(-2)
     ts = learner.init(k_init)
     ts, key, resumed_steps = resume(ts, key, checkpoint_dir, learner.steps_per_epoch)
-    env_state = wrapped.reset(jr.split(k_reset, cfg.num_envs))
+    env_state = reset_block(wrapped, k_reset, cfg.num_envs, mesh)
     epc = max(1, cfg.epochs_per_call)
     # ceil of the remaining budget: zero calls once the checkpoint covers it
     num_calls = -(-max(0, cfg.num_timesteps - resumed_steps) // (learner.steps_per_epoch * epc))

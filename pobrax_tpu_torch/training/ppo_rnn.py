@@ -12,6 +12,13 @@
 GAE, the clipped objective, observation normalisation, the optimizer and
 the key stream are those of `ppo.py`; here the minibatch key runs on across
 update epochs (there is no permutation).
+
+Under a `mesh` the semantics are global, as in `ppo.py`, and the hidden
+state is sharded with the envs. Rank d holds envs [d B/D, (d + 1) B/D);
+with B/D a multiple of M, env b's minibatch b % M is the same globally and
+locally, and rank d owns positions [d B/(D M), (d + 1) B/(D M)) of every
+minibatch's env axis, so the entropy's (T, B/M, A) draw is sliced along
+that axis.
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models.networks import lecun_normal, linear
 from pobrax_tpu_torch.parallel import health
+from pobrax_tpu_torch.parallel.mesh import Mesh, draw_block
 from pobrax_tpu_torch.training.ppo import (LearnerBase, TrainingState, Transition, _mean_metrics,
-                                           _split2, resume, run_epochs,
+                                           _split2, local_batch, reset_block, resume, run_epochs,
                                            wrap_for_training)
 
 def orthogonal(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -123,10 +131,12 @@ ANT_TAG = RNNPPOConfig(num_envs=2048, episode_length=1000, action_repeat=6, unro
 
 
 class RNNPPOLearner(LearnerBase):
-    def __init__(self, env: Env, cfg: RNNPPOConfig):
-        if cfg.num_envs % cfg.num_minibatches:
-            raise ValueError("num_envs must divide into num_minibatches")
-        super().__init__(env, cfg)
+    env_axis = 1  # a minibatch's policy outputs are (T, B/M, P)
+
+    def __init__(self, env: Env, cfg: RNNPPOConfig, mesh: Optional[Mesh] = None):
+        super().__init__(env, cfg, mesh)
+        if cfg.num_envs % (cfg.num_minibatches * self.n_shards):
+            raise ValueError("num_envs must divide into num_minibatches (per rank under a mesh)")
 
     def h0(self, batch: int) -> torch.Tensor:
         return torch.zeros(batch, self.cfg.hidden_size, device=self.device)
@@ -165,7 +175,7 @@ class RNNPPOLearner(LearnerBase):
         for _ in range(self.cfg.unroll_length):
             key, k_sample = _split2(key)
             nh, pol, value = self._apply(ts.params, ts.normalizer, h, env_state.obs)
-            pre_tanh = self.dist.sample_no_postprocess(pol, k_sample)
+            pre_tanh = self.dist.sample_no_postprocess(pol, k_sample, draw_block(self.mesh))
             log_prob = self.dist.log_prob(pol, pre_tanh)
             nstate = self.env.step(env_state, self.dist.postprocess(pre_tanh))
             h = nh * (1.0 - nstate.done[:, None])
@@ -220,10 +230,12 @@ class RNNPPOLearner(LearnerBase):
         self.clock.mark()
         ts = TrainingState(params=ts.params, opt_state=ts.opt_state, normalizer=normalizer,
                            epochs=ts.epochs + 1)
-        return ts, env_state, h, _mean_metrics(metrics, data.reward, cfg.reward_scaling)
+        return ts, env_state, h, _mean_metrics(metrics, data.reward, cfg.reward_scaling,
+                                               self.mesh)
 
 
 def train(env: Env, cfg: Optional[RNNPPOConfig] = None, seed: int = 0,
+          mesh: Optional[Mesh] = None,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1_000_000,
           autoreset_mode: str = "naive",
@@ -233,15 +245,17 @@ def train(env: Env, cfg: Optional[RNNPPOConfig] = None, seed: int = 0,
     named) -> (inference_fn, (normalizer, GRUNet), history); the inference
     function threads the hidden state: `h, action = inference_fn(params_tuple,
     h, obs, key)`. Checkpoints and resume as `ppo.train`; the env and hidden
-    state restart fresh on resume. `watchdog_deadline_s`: see `ppo.run_epochs`."""
+    state restart fresh on resume. `mesh`: see `ppo.train`.
+    `watchdog_deadline_s`: see `ppo.run_epochs`."""
     cfg = dataclasses.replace(cfg or RNNPPOConfig(), **cfg_overrides)
-    wrapped = wrap_for_training(env, cfg, autoreset_mode)
-    learner = RNNPPOLearner(wrapped, cfg)
+    batch = local_batch(cfg, mesh)
+    wrapped = wrap_for_training(env, cfg, autoreset_mode, batch)
+    learner = RNNPPOLearner(wrapped, cfg, mesh)
     key, k_init, k_reset = jr.split(jr.PRNGKey(seed, wrapped.device), 3).unbind(-2)
     ts = learner.init(k_init)
     ts, key, resumed_steps = resume(ts, key, checkpoint_dir, learner.steps_per_epoch)
-    env_state = wrapped.reset(jr.split(k_reset, cfg.num_envs))
-    h = learner.h0(cfg.num_envs)
+    env_state = reset_block(wrapped, k_reset, cfg.num_envs, mesh)
+    h = learner.h0(batch)
     epc = max(1, cfg.epochs_per_call)
     # at least one call on a fresh start, as JAX's
     num_calls = max(0 if resumed_steps else 1,

@@ -2,7 +2,9 @@
 `pobrax_tpu/training/running_statistics.py`.
 
 Welford-style streaming mean and std over every observation seen so far.
-One card needs no collectives, so `update` has no `axis_name`.
+Under a mesh (`parallel/mesh.py`) `update` sums the batch's count and
+deviations over the ranks, as JAX's `axis_name` psums do, so every rank
+folds the same global statistics.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from pobrax_tpu_torch.device import resolve
+from pobrax_tpu_torch.parallel.mesh import psum
 
 
 @dataclass
@@ -31,13 +34,18 @@ def init_state(obs_size: int, device=None) -> RunningStatisticsState:
         std=torch.ones(obs_size, device=device))
 
 
-def update(state: RunningStatisticsState, batch: torch.Tensor) -> RunningStatisticsState:
-    """Fold a batch (..., obs_size) into the running statistics."""
+def update(state: RunningStatisticsState, batch: torch.Tensor,
+           mesh=None) -> RunningStatisticsState:
+    """Fold a batch (..., obs_size) into the running statistics; with a
+    `mesh`, the batch is this rank's share of a global one: its count and
+    sums add up over the ranks (one all-reduce for the count and the first
+    sums, one for the second)."""
     flat = batch.reshape(-1, batch.shape[-1])
     diff_to_old = flat - state.mean
-    count = state.count + flat.shape[0]
-    mean = state.mean + diff_to_old.sum(0) / count
-    summed_variance = state.summed_variance + (diff_to_old * (flat - mean)).sum(0)
+    count_sum = psum(torch.cat([diff_to_old.sum(0), flat.new_full((1,), flat.shape[0])]), mesh)
+    count = state.count + count_sum[-1]
+    mean = state.mean + count_sum[:-1] / count
+    summed_variance = state.summed_variance + psum((diff_to_old * (flat - mean)).sum(0), mesh)
     std = torch.sqrt(torch.clamp(summed_variance / count, min=1e-6))
     return RunningStatisticsState(count=count, mean=mean, summed_variance=summed_variance,
                                   std=std)

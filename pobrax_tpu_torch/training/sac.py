@@ -26,7 +26,17 @@ states are flat vectors (`training/optimizer.py`, no clipping), which
 `pobrax_tpu_torch.interop` maps to and from JAX's `optax.flatten(adam)`
 states. Beyond JAX's `sac.train`, `train` checkpoints and resumes as the
 recurrent learner does (`checkpoint_dir`; the replay buffer is not saved and
-refills through `min_replay`). Not ported: `mesh`, ROADMAP §1 item 3.
+refills through `min_replay`).
+
+Data parallelism (`mesh`, `parallel/mesh.py`): JAX runs the epoch under
+`shard_map`, so the semantics are per shard, and so are the port's ranks.
+Rank d holds `num_envs / D` envs (its block of the global reset) and their
+replay columns; it folds d into the epoch key (`fold_in(key, d)`), steps its
+envs, fills its own buffer and draws `batch_size / D` of its own
+transitions. The only collectives are the mean of the q, actor and
+temperature gradients (`Optimizer.step(..., mesh)`), the statistics' sums
+(`running_statistics.update(..., mesh)`) and, once an epoch, the mean of
+q_loss, actor_loss and mean_reward over the ranks.
 """
 
 from __future__ import annotations
@@ -45,10 +55,11 @@ from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models import networks
 from pobrax_tpu_torch.parallel import health
+from pobrax_tpu_torch.parallel.mesh import Mesh, pmean
 from pobrax_tpu_torch.training import replay, running_statistics
 from pobrax_tpu_torch.training.distribution import NormalTanhDistribution
 from pobrax_tpu_torch.training.optimizer import AdamState, Optimizer
-from pobrax_tpu_torch.training.ppo import _split2, resume, run_epochs
+from pobrax_tpu_torch.training.ppo import _split2, reset_block, resume, run_epochs
 
 
 class Scalar(nn.Module):
@@ -187,8 +198,31 @@ class SplitClock:
         return out["collect"], out["update"]
 
 
+# the metrics the ranks average (JAX's pmeans); alpha is replicated already
+AVERAGED = ("q_loss", "actor_loss", "mean_reward")
+
+
+def epoch_metrics(metrics, mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """An epoch's mean metrics; under a mesh `AVERAGED` are averaged over
+    the ranks in one all-reduce (the mean of the per-step means JAX pmeans)."""
+    out = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+    if mesh is not None:
+        out.update(zip(AVERAGED, pmean(torch.stack([out[k] for k in AVERAGED]), mesh).unbind()))
+    return out
+
+
+def shard_sizes(cfg, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(envs, transitions or sequences a grad step draws) of one rank."""
+    n = mesh.data if mesh is not None else 1
+    if cfg.num_envs % n or cfg.batch_size % n:
+        raise ValueError("num_envs and batch_size must divide the mesh 'data' axis")
+    return cfg.num_envs // n, cfg.batch_size // n
+
+
 class SACLearner:
-    def __init__(self, env: Env, cfg: SACConfig):
+    def __init__(self, env: Env, cfg: SACConfig, mesh: Optional[Mesh] = None):
+        self.mesh = mesh
+        self.local_envs, self.local_bs = shard_sizes(cfg, mesh)
         self.env = env
         self.cfg = cfg
         self.device = env.device
@@ -222,7 +256,7 @@ class SACLearner:
 
     def init(self, key: torch.Tensor) -> SACTrainingState:
         params = self.make_params(key)
-        B, dev = self.cfg.num_envs, self.device
+        B, dev = self.local_envs, self.device
         zeros = torch.zeros(B, device=dev)
         obs = torch.zeros(B, self.obs_size, device=dev)
         sample = {"obs": obs, "action": torch.zeros(B, self.action_size, device=dev),
@@ -280,7 +314,7 @@ class SACLearner:
     def grad_step(self, ts: SACTrainingState, key: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One gradient step of critics, actor and temperature, in place."""
         k1, k2, k3 = jr.split(key, 3).unbind(-2)
-        batch = replay.sample_transitions(ts.buffer, k1, self.cfg.batch_size)
+        batch = replay.sample_transitions(ts.buffer, k1, self.local_bs)
         params = ts.params
         params.zero_grad(set_to_none=True)
         with torch.enable_grad():
@@ -289,9 +323,9 @@ class SACLearner:
             a_loss, logp = self._actor_loss(params, ts.normalizer, batch, k3)
             a_loss.backward()
             self._alpha_loss(params.log_alpha.value, logp).backward()
-        ts.q_opt = self.optimizer.step(params.q, ts.q_opt)
-        ts.policy_opt = self.optimizer.step(params.policy, ts.policy_opt)
-        ts.alpha_opt = self.optimizer.step(params.log_alpha, ts.alpha_opt)
+        ts.q_opt = self.optimizer.step(params.q, ts.q_opt, self.mesh)
+        ts.policy_opt = self.optimizer.step(params.policy, ts.policy_opt, self.mesh)
+        ts.alpha_opt = self.optimizer.step(params.log_alpha, ts.alpha_opt, self.mesh)
         soft_update(params.target_q, params.q, self.cfg.tau)
         return {"q_loss": q_loss.detach(), "actor_loss": a_loss.detach(),
                 "alpha": torch.exp(params.log_alpha.value.detach())}
@@ -307,6 +341,8 @@ class SACLearner:
         reads its collect / update split."""
         cfg = self.cfg
         self.clock.start()
+        if self.mesh is not None:
+            key = jr.fold_in(key, self.mesh.rank)  # each rank its own stream
         metrics = []
         for _ in range(cfg.steps_per_epoch):
             key, k_act, k_grad = jr.split(key, 3).unbind(-2)
@@ -318,7 +354,8 @@ class SACLearner:
                 "next_obs": nstate.info.get("final_obs", nstate.obs), "done": nstate.done,
                 "truncation": nstate.info.get("truncation", torch.zeros_like(nstate.done))})
             if cfg.normalize_observations:
-                ts.normalizer = running_statistics.update(ts.normalizer, env_state.obs)
+                ts.normalizer = running_statistics.update(ts.normalizer, env_state.obs,
+                                                          self.mesh)
             self.clock.mark("collect")
             m = self._skipped(ts)
             if ts.buffer.size >= cfg.min_replay:
@@ -329,7 +366,7 @@ class SACLearner:
             self.clock.mark("update")
             env_state = nstate
         ts.epochs += 1
-        return ts, env_state, {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+        return ts, env_state, epoch_metrics(metrics, self.mesh)
 
     def inference_params(self, ts: SACTrainingState) -> tuple:
         """The params tuple `make_inference_fn`'s policy takes."""
@@ -350,17 +387,20 @@ class SACLearner:
         return policy
 
 
-def wrap_for_training(env: Env, cfg: SACConfig, autoreset_mode: str) -> Env:
-    """Episode -> Vmap -> randomised autoreset, as JAX's `sac.train` stacks
-    them (no action repeat)."""
+def wrap_for_training(env: Env, cfg: SACConfig, autoreset_mode: str,
+                      batch: Optional[int] = None) -> Env:
+    """Episode -> Vmap (`batch` envs, cfg.num_envs unless named) ->
+    randomised autoreset, as JAX's `sac.train` stacks them (no action
+    repeat)."""
     from pobrax_tpu_torch.envs import wrappers
 
     wrapped = wrappers.EpisodeWrapper(env, cfg.episode_length, 1)
-    wrapped = wrappers.VmapWrapper(wrapped, batch_size=cfg.num_envs)
+    wrapped = wrappers.VmapWrapper(wrapped, batch_size=batch or cfg.num_envs)
     return wrappers.randomized_autoreset(wrapped, autoreset_mode)
 
 
 def train(env: Env, cfg: Optional[SACConfig] = None, seed: int = 0,
+          mesh: Optional[Mesh] = None,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           autoreset_mode: str = "naive", checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 1_000_000,
@@ -370,13 +410,15 @@ def train(env: Env, cfg: Optional[SACConfig] = None, seed: int = 0,
     -> (inference_fn, (normalizer, policy), history). The env is wrapped
     Episode -> Vmap -> randomised autoreset (`autoreset_mode` 'naive' or
     'cached'); `progress_fn` gets the epoch's mean losses, `rollout_ms` /
-    `update_ms` (the collect / update split) and `steps_per_second`.
+    `update_ms` (the collect / update split) and `steps_per_second`. With
+    `mesh` this process is one rank of the data-parallel run (module
+    docstring); `num_envs`, `batch_size` and the env-steps stay global.
     `watchdog_deadline_s`: see `ppo.run_epochs`."""
     cfg = dataclasses.replace(cfg or SACConfig(), **cfg_overrides)
-    wrapped = wrap_for_training(env, cfg, autoreset_mode)
-    learner = SACLearner(wrapped, cfg)
+    wrapped = wrap_for_training(env, cfg, autoreset_mode, shard_sizes(cfg, mesh)[0])
+    learner = SACLearner(wrapped, cfg, mesh)
     key, k_init, k_reset = jr.split(jr.PRNGKey(seed, wrapped.device), 3).unbind(-2)
-    env_state = wrapped.reset(jr.split(k_reset, cfg.num_envs))
+    env_state = reset_block(wrapped, k_reset, cfg.num_envs, mesh)
     ts = learner.init(k_init)
     per_epoch = learner.steps_per_epoch
     ts, key, resumed_steps = resume(ts, key, checkpoint_dir, per_epoch)

@@ -33,8 +33,18 @@ step's update). The GRU cells follow `ppo_rnn.gru_cell`'s conventions.
 `train` checkpoints and resumes (`checkpoint_dir`: parameters, the three
 Adam states, the normaliser and the epoch count; the key folded with the
 epoch count; `actor_freeze_epochs` counted from the resumed epoch) and
-collects with a `carry_env` in the first columns (`[carry | train]`). Not
-ported: `mesh`, ROADMAP §1 item 3.
+collects with a `carry_env` in the first columns (`[carry | train]`).
+
+Under a `mesh` the semantics are per shard, as JAX's `shard_map` epoch and
+`sac.py`: rank d folds d into the epoch key, steps its `num_envs / D` envs
+with their GRU hidden states, fills its own replay columns and PER table and
+draws `batch_size / D` of its own sequences. The collectives: the mean of
+the q and actor gradients, the mean of the actor loss's `logp` before the
+temperature's loss (so the temperature's gradient is the same on every rank
+and is not averaged again), the statistics' sums, and the epoch's mean
+q_loss, actor_loss and mean_reward. With a carry env the layout is per
+shard too: `carry_envs` is a multiple of D and every rank's columns are
+`[carry / D | train]`, its block of JAX's interleaved global batch.
 """
 
 from __future__ import annotations
@@ -50,13 +60,15 @@ from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs.base import Env, State
 from pobrax_tpu_torch.models.networks import lecun_normal, linear
 from pobrax_tpu_torch.parallel import health
+from pobrax_tpu_torch.parallel.mesh import Mesh, pmean, tree_map
 from pobrax_tpu_torch.training import replay, running_statistics
 from pobrax_tpu_torch.training.distribution import NormalTanhDistribution
 from pobrax_tpu_torch.training.optimizer import Optimizer
 from pobrax_tpu_torch.training.ppo import _split2, resume, run_epochs
 from pobrax_tpu_torch.training.ppo_rnn import gru_cell
 from pobrax_tpu_torch.training.sac import (SACParams, SACTrainingState, Scalar, SplitClock,
-                                           copy_module, frozen, soft_update)
+                                           copy_module, epoch_metrics, frozen, shard_sizes,
+                                           soft_update)
 
 
 class ActorGRU(nn.Module):
@@ -184,18 +196,6 @@ def nstep_targets(r, not_terminal, v_boot, gamma: float, n: int):
     return target
 
 
-def tree_map(fn, x):
-    """`fn` on every tensor of a State / QP / dict tree."""
-    if isinstance(x, torch.Tensor):
-        return fn(x)
-    if isinstance(x, dict):
-        return {k: tree_map(fn, v) for k, v in x.items()}
-    if dataclasses.is_dataclass(x):  # State, QP, EvalMetrics
-        return type(x)(**{f.name: tree_map(fn, getattr(x, f.name))
-                          for f in dataclasses.fields(x)})
-    return x
-
-
 def tree_concat(a, b):
     """Two trees of the same structure joined along the batch axis."""
     if isinstance(a, torch.Tensor):
@@ -209,18 +209,23 @@ def tree_concat(a, b):
 
 
 class RSACLearner:
-    def __init__(self, env: Env, cfg: RSACConfig, carry_env: Optional[Env] = None,
-                 carry_envs: int = 0):
+    def __init__(self, env: Env, cfg: RSACConfig, mesh: Optional[Mesh] = None,
+                 carry_env: Optional[Env] = None, carry_envs: int = 0):
         if cfg.burn_in >= cfg.seq_len:
             raise ValueError("burn_in must be < seq_len")
+        self.mesh = mesh
+        self.local_envs, self.local_bs = shard_sizes(cfg, mesh)
+        n_shards = mesh.data if mesh is not None else 1
         self.carry_env = carry_env
         if carry_env is not None:
             if not 0 < carry_envs < cfg.num_envs:
                 raise ValueError("carry_envs must be in (0, num_envs)")
+            if carry_envs % n_shards:
+                raise ValueError("the mesh 'data' axis size must divide carry_envs")
             if (carry_env.observation_size != env.observation_size
                     or carry_env.action_size != env.action_size):
                 raise ValueError("carry_env must match obs/action sizes")
-        self._carry = carry_envs
+        self._carry = carry_envs // n_shards  # this rank's carry columns
         self.env = env
         self.cfg = cfg
         self.device = env.device
@@ -273,7 +278,7 @@ class RSACLearner:
     def init(self, key: torch.Tensor) -> SACTrainingState:
         cfg, dev = self.cfg, self.device
         params = self.make_params(key)
-        L, B = cfg.seq_len, cfg.num_envs
+        L, B = cfg.seq_len, self.local_envs
         seq = {"obs": torch.zeros(L, B, self.obs_size, device=dev),
                "action": torch.zeros(L, B, self.action_size, device=dev),
                "reward": torch.zeros(L, B, device=dev),
@@ -392,11 +397,11 @@ class RSACLearner:
         k_slot, k_col = _split2(key)
         data = ts.buffer.data
         if cfg.per_alpha > 0:
-            slot, col, is_w = replay.sample_prioritized(ts.priorities, k_slot, cfg.batch_size,
+            slot, col, is_w = replay.sample_prioritized(ts.priorities, k_slot, self.local_bs,
                                                         cfg.per_alpha, cfg.per_beta)
         else:
-            slot = jr.randint(k_slot, (cfg.batch_size,), 0, max(ts.buffer.size, 1)).long()
-            col = jr.randint(k_col, (cfg.batch_size,), 0, data["h0"].shape[1]).long()
+            slot = jr.randint(k_slot, (self.local_bs,), 0, max(ts.buffer.size, 1)).long()
+            col = jr.randint(k_col, (self.local_bs,), 0, data["h0"].shape[1]).long()
             is_w = None
         # (slot, col) pairs index around the time axis: (batch, L, ...) -> (L, batch, ...)
         seq = {"h0": data["h0"][slot, col],
@@ -422,10 +427,11 @@ class RSACLearner:
             if do_actor:
                 a = self._losses(params, ts.normalizer, seq, k3, critic=False, actor=True)
                 a["actor_loss"].backward()
-                self._alpha_loss(params.log_alpha.value, a["logp"]).backward()
-        ts.q_opt = self.optimizer.step(params.q, ts.q_opt)
+                # the ranks' mean logp: one temperature gradient for all
+                self._alpha_loss(params.log_alpha.value, pmean(a["logp"], self.mesh)).backward()
+        ts.q_opt = self.optimizer.step(params.q, ts.q_opt, self.mesh)
         if do_actor:
-            ts.policy_opt = self.optimizer.step(params.policy, ts.policy_opt)
+            ts.policy_opt = self.optimizer.step(params.policy, ts.policy_opt, self.mesh)
             ts.alpha_opt = self.optimizer.step(params.log_alpha, ts.alpha_opt)
         soft_update(params.target_q, params.q, cfg.tau)
         if cfg.per_alpha > 0:
@@ -451,7 +457,7 @@ class RSACLearner:
             nstate = self._step_envs(env_state, action)
             h = nh * (1.0 - nstate.done[:, None])
             if cfg.normalize_observations:
-                normalizer = running_statistics.update(normalizer, env_state.obs)
+                normalizer = running_statistics.update(normalizer, env_state.obs, self.mesh)
             rows.append((env_state.obs, action, nstate.reward, nstate.done,
                          nstate.info.get("truncation", torch.zeros_like(nstate.done)),
                          nstate.info.get("final_obs", nstate.obs)))
@@ -467,6 +473,8 @@ class RSACLearner:
         place. `self.clock.ms()` then reads its collect / update split."""
         cfg = self.cfg
         self.clock.start()
+        if self.mesh is not None:
+            key = jr.fold_in(key, self.mesh.rank)  # each rank its own stream
         metrics = []
         for _ in range(cfg.seqs_per_epoch):
             key, k_seq, k_grad = jr.split(key, 3).unbind(-2)
@@ -485,8 +493,7 @@ class RSACLearner:
             metrics.append(m)
             self.clock.mark("update")
         ts.epochs += 1
-        return ts, env_state, h, {k: torch.stack([m[k] for m in metrics]).mean()
-                                  for k in metrics[0]}
+        return ts, env_state, h, epoch_metrics(metrics, self.mesh)
 
     def inference_params(self, ts: SACTrainingState) -> tuple:
         """The params tuple `make_inference_fn`'s policy takes."""
@@ -513,6 +520,7 @@ class _Epochs:
     def __init__(self, learner: RSACLearner, freeze_until: int):
         self.learner, self.freeze_until = learner, freeze_until
         self.steps_per_epoch, self.clock = learner.steps_per_epoch, learner.clock
+        self.mesh = learner.mesh
 
     def epoch(self, ts, env_state, h, key):
         return self.learner.epoch(ts, env_state, h, key, self.freeze_until)
@@ -532,6 +540,7 @@ def wrap_for_training(env: Env, cfg: RSACConfig, autoreset_mode: str,
 
 
 def train(env: Env, cfg: Optional[RSACConfig] = None, seed: int = 0,
+          mesh: Optional[Mesh] = None,
           progress_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
           autoreset_mode: str = "naive", checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 1_000_000, carry_env: Optional[Env] = None,
@@ -546,30 +555,42 @@ def train(env: Env, cfg: Optional[RSACConfig] = None, seed: int = 0,
     training resumes from the latest step dir (the replay buffer refills
     through `min_replay`). With `carry_env` (a curriculum's previous-phase
     env), a `carry_frac` share of the columns, rounded to at least one,
-    keeps collecting from it: the batch is [carry | train].
+    keeps collecting from it: the batch is [carry | train]. With `mesh` this
+    process is one rank of the data-parallel run (module docstring): the
+    carry share is rounded to at least one column per rank and each rank's
+    batch is [its carry | its train] columns.
     `watchdog_deadline_s`: see `ppo.run_epochs`."""
     cfg = dataclasses.replace(cfg or RSACConfig(), **cfg_overrides)
-    wrapped = wrap_for_training(env, cfg, autoreset_mode)
+    n_shards = mesh.data if mesh is not None else 1
+    local = shard_sizes(cfg, mesh)[0]
+    wrapped = wrap_for_training(env, cfg, autoreset_mode, local)
     if carry_env is not None and carry_frac <= 0.0:
         carry_env = None  # carry_frac <= 0: pure-env collection
     carry_envs, carry_wrapped = 0, None
     if carry_env is not None:
         if not 0.0 < carry_frac < 1.0:
             raise ValueError("carry_frac must be in (0, 1)")
-        carry_envs = max(1, round(carry_frac * cfg.num_envs))
-        carry_wrapped = wrap_for_training(carry_env, cfg, autoreset_mode, carry_envs)
-    learner = RSACLearner(wrapped, cfg, carry_env=carry_wrapped, carry_envs=carry_envs)
+        carry_envs = max(1, round(carry_frac * cfg.num_envs / n_shards)) * n_shards
+        carry_wrapped = wrap_for_training(carry_env, cfg, autoreset_mode,
+                                          carry_envs // n_shards)
+    learner = RSACLearner(wrapped, cfg, mesh, carry_env=carry_wrapped, carry_envs=carry_envs)
     key, k_init, k_reset = jr.split(jr.PRNGKey(seed, wrapped.device), 3).unbind(-2)
     keys = jr.split(k_reset, cfg.num_envs)
+    # the global batch: the carry block's keys first, then the train block's;
+    # rank d takes its block of each, so its columns are [carry | train]
+    d = mesh.rank if mesh is not None else 0
+    k_carry = carry_envs // n_shards
+    k_train = local - k_carry
+    train_keys = keys[carry_envs + d * k_train:carry_envs + (d + 1) * k_train]
     if carry_wrapped is None:
-        env_state = wrapped.reset(keys)
+        env_state = wrapped.reset(train_keys)
     else:
-        env_state = tree_concat(carry_wrapped.reset(keys[:carry_envs]),
-                                wrapped.reset(keys[carry_envs:]))
+        env_state = tree_concat(carry_wrapped.reset(keys[d * k_carry:(d + 1) * k_carry]),
+                                wrapped.reset(train_keys))
     ts = learner.init(k_init)
     per_epoch = learner.steps_per_epoch
     ts, key, resumed_steps = resume(ts, key, checkpoint_dir, per_epoch)
-    h = learner.h0(cfg.num_envs)
+    h = learner.h0(local)
     # the actor freeze counts from this run's first epoch
     freeze_until = ts.epochs + cfg.actor_freeze_epochs if cfg.actor_freeze_epochs else 0
     num_epochs = max(0 if resumed_steps else 1,

@@ -32,7 +32,8 @@ missing = ({{"pobrax_tpu_torch.envs." + m for m in
             ("ant", "ant_heavenhell", "ant_gather", "ant_maze", "maze_utils", "exploration",
              "fast", "planar", "acrobot", "gym_adapter")}}
            | {{"pobrax_tpu_torch.physics.planar", "pobrax_tpu_torch.io.html",
-               "pobrax_tpu_torch.parallel.health"}}
+               "pobrax_tpu_torch.parallel.health", "pobrax_tpu_torch.parallel.mesh",
+               "pobrax_tpu_torch.graft_entry", "pobrax_tpu_torch.multihost_train"}}
            | {{"pobrax_tpu_torch.utils." + m for m in ("profiling", "metrics_writer", "debug")}}
            | {{"pobrax_tpu_torch.training." + m for m in
               ("ppo", "ppo_rnn", "distribution", "running_statistics", "optimizer",
@@ -69,7 +70,8 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
     with pytest.raises(RuntimeError):
         System(extend_ant_cfg())
     # the learners and the checkpoint replay resolve the card the same way
-    from pobrax_tpu_torch import eval_tag_checkpoint
+    from pobrax_tpu_torch import eval_tag_checkpoint, graft_entry
+    from pobrax_tpu_torch.parallel import mesh
     from pobrax_tpu_torch.envs.fast import Fast
     from pobrax_tpu_torch.models import networks
     from pobrax_tpu_torch.envs.ant import Ant
@@ -87,7 +89,9 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
                  lambda: eval_tag_checkpoint.load(eval_tag_checkpoint.SAC_NPZ, sac=True),
                  lambda: networks.make_model([4], 3),
                  lambda: running_statistics.init_state(3),
-                 lambda: eval_tag_checkpoint.load()):
+                 lambda: eval_tag_checkpoint.load(),
+                 lambda: graft_entry.entry(),
+                 lambda: mesh.make_mesh()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     # asking for the CPU works
