@@ -7,8 +7,9 @@ Grasp, and the planar envs and acrobot, each at 4096 batched envs with the
 cached on-device randomised autoreset, every control step one launch of the
 hand-written whole-step CUDA kernel (a half-warp per env); the four learners;
 PPO on halfcheetah at examples/train_ppo.py's recipe with its HTML
-evaluation page; and the multi-process half, two ranks of a 'data' mesh
-sharing the card over gloo training AntTag with PPO and GRU-SAC — and
+evaluation page; the multi-process half, two ranks of a 'data' mesh
+sharing the card over gloo training AntTag with PPO and GRU-SAC; and the
+examples at their recipes' widths, the AntTag solve's curriculum first — and
 checks them. Imports no jax and nothing of
 `pobrax_tpu`; the fixtures are read with numpy. Phases:
   1. card: name and power limit (nvidia-smi) and torch's device name;
@@ -43,24 +44,24 @@ checks them. Imports no jax and nothing of
      and ref_ant_gather_s7.npz, and of the JAX package's
      halfcheetah_s7_ours.npz;
   5. main paths: `create("ant_tag", batch_size=4096, episode_length=1000,
-     randomized_autoreset=True, autoreset_mode=...)` for "cached" (400
-     steps) and "naive" (100); then `MaskedObservationWrapper(create(name, ..., "cached"),
+     randomized_autoreset=True, autoreset_mode=...)` for "cached" (200
+     steps) and "naive" (20); then `MaskedObservationWrapper(create(name, ..., "cached"),
      env_name=name, hidden=("VELOCITY",))` (`bench.py`'s masked_<name>) for
-     humanoid and grasp, 400 steps each, and for fetch, ur5e, reacherangle
+     humanoid and grasp, 200 steps each, and for fetch, ur5e, reacherangle
      and inverted_double_pendulum, 100 steps each; `ant_heavenhell`,
-     `ant_gather` and `ant_maze` "cached", 400 steps each, `ant_gather`
-     "naive", 100 steps (a batched permutation reset every step),
+     `ant_gather` and `ant_maze` "cached", 200 steps each, `ant_gather`
+     "naive", 20 steps (a batched permutation reset every step),
      `ant_tag` "cached" with `info="contact"`, 100 steps, halfcheetah,
-     hopper and walker2d "cached", 400 steps each (hopper and walker2d must
+     hopper and walker2d "cached", 200 steps each (hopper and walker2d must
      end episodes), and acrobot "cached", 100 steps. Each runs 10
      warm-up steps then the timed steps of on-device random actions, with the
      kernel's launch counter set to 0 just before the timed steps and read
      just after; AntGather prints the apples and bombs caught;
   6. times: per System (and AntTag's contact-only variant), the kernel's and
      the plain version's time per control step at 4096 envs (`ant` at SAC's
-     128, then 4096; the learners' System at GRU-PPO's 2048 and at a GRU-SAC
-     rank's 256, an entry each; halfcheetah at 4096, 1024 and 1, an entry
-     each) (CUDA events over
+     128, then 4096; the learners' System at each batch of LEARNER_BATCHES,
+     an entry each; halfcheetah at 4096, 1024 and 1, an entry each; the
+     examples' pairs of phase 18) (CUDA events over
      back-to-back launches, after 0.2 s of warm-up), the kernel's device time
      (launches queued behind a sleep kernel, so they run back to back: the
      two differ where the wrapper's host work per launch outlasts the
@@ -70,16 +71,16 @@ checks them. Imports no jax and nothing of
      `AntTagEnv` with examples/train_ant_tag_rnn.py's recipe
      (`ppo_rnn.ANT_TAG`: 2048 envs, episode 1000, action_repeat 6, unroll
      32, 8 minibatches, 4 update epochs, lr 3e-4, entropy 3e-3, discount
-     0.97, encoder (256,), hidden 128), `autoreset_mode="cached"`, 3
+     0.97, encoder (256,), hidden 128), `autoreset_mode="cached"`, 2
      epochs; per epoch the wall ms, the
      rollout / update split, the whole-step launches (one per control step:
      32, action_repeat folds into the kernel's 60 substeps), env-steps/s
      and the losses; fails on a non-finite loss, unchanged parameters or
      another launch count. Before it the kernel is held against the plain
      step on the action_repeat=6 System at the learners' batches (2048,
-     4096, 256, 512 with 1/16 of the ants on a wall, and 256 with every ant
-     on a wall, held to the share the JAX package's own fused-vs-generic pair
-     reaches there, ALL_WALLED_MIN_AGREE);
+     4096, 256, 512, 128 and 384 with 1/16 of the ants on a wall, and 256
+     with every ant on a wall, held to the share the JAX package's own
+     fused-vs-generic pair reaches there, ALL_WALLED_MIN_AGREE);
   8. feed-forward PPO trains AntTag at full width: `ppo.train` with
      examples/train_ant_tag.py's recipe (`ppo.ANT_TAG`: 4096 envs,
      action_repeat 6, unroll 16, 32 minibatches, 4 update epochs, policy
@@ -108,9 +109,9 @@ checks them. Imports no jax and nothing of
      `RSACLearner.epoch`, whose priority table must move off its insert
      value and stay finite;
  12. the committed GRU-SAC checkpoint (pobrax_tpu_torch/checkpoints/
-     ant_tag_sac_rnn_phase0_750M.npz): the checksum, then the tag rates
-     deterministic and stochastic at radius 20 and 4, the stochastic one at
-     radius 20 gated at MIN_SAC_TAG_RATE (JAX recorded 0.8125,
+     ant_tag_sac_rnn_phase0_750M.npz): the checksum, then the tag rates det
+     and stoch at radius 20 and 4, the stochastic one at radius 20 gated at
+     MIN_SAC_TAG_RATE (JAX recorded 0.8125,
      docs/learning_ant_tag_sac_rnn_phase0.json);
  13. PPO trains halfcheetah at examples/train_ppo.py's recipe
      (`ppo.HALFCHEETAH`: 1024 envs, episode 1000, unroll 20, 16 minibatches,
@@ -129,7 +130,7 @@ checks them. Imports no jax and nothing of
      kernel the parent built: (c) each rank's first control step of its
      2048-env block of the learner's reset, against the single process's
      4096 (obs within 1e-3); (a) `ppo.train(mesh=...)` at ppo.ANT_TAG, 2 x
-     2048 envs, cached, 3 epochs with a checkpoint each (rank 0 writes):
+     2048 envs, cached, 2 epochs with a checkpoint each (rank 0 writes):
      per rank and epoch the wall, rollout / update split and losses,
      parameters bit-equal across the ranks after every epoch, metrics
      equal, 16 launches a rank an epoch, parameters moved; (b) one epoch's
@@ -148,6 +149,46 @@ checks them. Imports no jax and nothing of
      same epoch with no mesh and shuffle_blocks=1: policy and statistics
      bit-equal (the NCCL code path; two ranks cannot share a card under it).
 Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
+ 18. the examples (`pobrax_tpu_torch/examples/`) at their recipes' widths,
+     each through the entry point a user calls: first the kernel against
+     the plain step on each (System, batch) they add (with phase 3:
+     HeavenHell, Gather, whose 16 pass-through bodies must stay bit-equal,
+     and Maze at action_repeat 6 and 2048 envs, HeavenHell at 512 and at 8 x
+     6 substeps, `ant` at 2048, the pendulum at 1024 and 64; each of these
+     Systems at the evaluators' 256 episodes; AntTag at 1 and 16 envs), then
+     what each shaped wrapper adds to a learner's control step (unshaped and
+     shaped in turns, device kernels traced), then: (a) the main path,
+     `train_ant_tag_rnn.main_curriculum` at 2048 envs with each phase's
+     budget cut to one epoch (radius 20 -> 6 -> 4, one checkpoint resumed at
+     each boundary, epochs saved 1, 2, 3, 32 launches an epoch, finite
+     losses, moved parameters), then its true-env tag rates on 256 episodes,
+     det and stoch, reported; (b) `eval_checkpoint.main` of the gather (800M
+     and bombmem02 1B) and maze checkpoints: checksums, the maze's det goal
+     rate gated at 0.95, gather's apples and net gated at REPLAY_GATES; (c)
+     `train_ant_gather_rnn.main_curriculum` at the bombmem02 recipe (sensor
+     14 -> 6 -> 6, novelty 0.25, 0.25, 0, bomb memory 0.2), one call of 8
+     epochs a phase, and its gather_eval; (d) `train_ant_maze_rnn.main`: the
+     random goal rate, one call of 8 epochs saved under its checkpoint dir,
+     the GRU goal rates det and stoch; (e) `train_heavenhell_rnn.main`, an
+     epoch at 10 substeps and one under HH_SUBSTEPS=8 (with its transfer
+     evaluation on the true 10), and `train_heavenhell_sac_rnn.main` at 512
+     envs for HH_SAC_EPOCHS epochs, each with its random and GRU
+     `outcome_rates`; (f) `train_ant_tag_sac_rnn.run_phase(0)` past
+     min_replay into two epochs of gradient steps, then CARRY_EPOCHS of the
+     carry run from the committed phase-0 export at carry_frac 0.25 (its
+     replay's [carry | train] columns, the epoch count continuing the
+     export's), each with its tag rates det and stoch at two radii; (g) the
+     masked ant (three learners, an epoch each, 2048 envs), the masked
+     pendulum (1024) and GRU-SAC on it (64), with their evaluators at 256
+     episodes; (h) `visualize.main("ant_tag", 300)` and
+     `rollout_demo.native_path` (16 envs, NATIVE_DEMO_STEPS steps, twice).
+     The steps run in three spawned processes at once (EXAMPLE_PARTS), each
+     with its own counts. Every train is watched: one launch a control step,
+     finite losses, each core env rescaled by ActionRepeat once. Every
+     launch is counted under the entry of its (substeps, batch), and a
+     launch at a pair that no entry compares fails. Each of (a)-(h) prints
+     its wall time, its trained env-steps as JAX counts them and its
+     launches, and a `[clock]` line.
 A `[clock]` line after each phase gives its seconds and the seconds since
 the start. Then one JSON line with an entry per System (halfcheetah one per
 batch; each with its resident warps per SM), the card's name and power
@@ -162,6 +203,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import multiprocessing
 import os
 import re
 import sys
@@ -171,17 +213,23 @@ import time
 import numpy as np
 import torch
 
-from pobrax_tpu_torch import eval_tag_checkpoint, graft_entry
+from pobrax_tpu_torch import eval_checkpoint, eval_tag_checkpoint, graft_entry
 from pobrax_tpu_torch import random as jr
-from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
+from pobrax_tpu_torch.envs import MaskedObservationWrapper, Wrapper, _envs, create, wrappers
 from pobrax_tpu_torch.envs.ant import Ant
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.envs.masks import VELOCITY
 from pobrax_tpu_torch.envs.planar import Halfcheetah
+from pobrax_tpu_torch.examples import (rollout_demo, train_ant_gather_rnn, train_ant_maze_rnn,
+                                       train_ant_tag, train_ant_tag_rnn, train_ant_tag_sac_rnn,
+                                       train_ant_tag_sac_rnn_carry, train_heavenhell_rnn,
+                                       train_heavenhell_sac_rnn, train_masked_ant,
+                                       train_masked_pendulum, train_sac_rnn_pendulum, visualize)
 from pobrax_tpu_torch.io import html
 from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.parallel import mesh as pmesh
 from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
+from pobrax_tpu_torch.profile_step import _trace
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
 from time_kernel import card_line, cuda_ms, device_ms
@@ -191,7 +239,7 @@ FIXTURES = [os.path.join(ROOT, "tests", "fixtures", name)
             for name in ("ref_ant_tag_s7.npz", "ref_ant_heavenhell_s7.npz",
                          "ref_ant_gather_s7.npz", "halfcheetah_s7_ours.npz")]
 B = 4096
-MAIN_STEPS = 400
+MAIN_STEPS = 200  # cut from 400 to fit the examples phase
 WARMUP_STEPS = 10  # first calls (allocator, table upload) before the timed window
 WARM_PLAIN_STEPS = 50
 WALL_ENVS, WALL_TORSO_X = 256, 5.15  # the +x arena wall's inner face is at x = 5.5
@@ -219,6 +267,9 @@ ENDS_EPISODES = ("humanoid", "hopper", "walker2d")  # random actions must end ep
 FINGER_ENVS = 256  # grasp envs whose Object is placed against finger f0
 MASKED_MAIN = ("humanoid", "grasp")  # the masked main paths, MAIN_STEPS each
 MASKED_OTHER, OTHER_STEPS = ("fetch", "ur5e", "reacherangle", "inverted_double_pendulum"), 100
+# the naive-autoreset main paths (AntTag, AntGather; a batched reset every
+# step, ~0.3 s a step at 4096 envs): cut from 100 steps to fit the examples' phase
+NAIVE_STEPS = 10
 ROW_KINDS = ("point_plane", "sphere_sphere", "capsule_capsule", "capsule_box")
 PO_MAIN = ("ant_heavenhell", "ant_gather", "ant_maze")  # cached, MAIN_STEPS each
 # PO Systems against the plain step: plain steps from reset, then the torso
@@ -232,8 +283,10 @@ RAGGED = 4095  # a batch that leaves the last block one env short
 # the learners' System: AntTag under ActionRepeat(6), 60 substeps a launch
 LEARNER = "ant_tag,action_repeat=6"
 ACTION_REPEAT = 6
-# GRU-PPO, PPO, the checkpoint evaluations, GRU-SAC
-LEARNER_BATCHES = (2048, 4096, 256, 512)
+# GRU-PPO, PPO, the evaluations and a GRU-SAC rank, GRU-SAC, and the carry
+# run's two stacks (a quarter and three quarters of GRU-SAC's 512 envs); each
+# batch is an entry of the kernels line, LEARNER at 2048
+LEARNER_BATCHES = (2048, 4096, 256, 512, 128, 384)
 # With every ant of the learners' System on a wall, contact onsets within the
 # 60 substeps come 6x as often as at 10, and an onset that the two summation
 # orders round to opposite sides parts one env's velocities. The JAX
@@ -243,7 +296,7 @@ LEARNER_BATCHES = (2048, 4096, 256, 512)
 # So that case alone, here and in tests/test_torch_kernel_host.py, is held
 # to 97.5%, just under the reference's lowest share, 97.66%.
 ALL_WALLED_MIN_AGREE = 0.975
-GRU_EPOCHS, PPO_EPOCHS = 3, 2  # at ppo_rnn.ANT_TAG's and ppo.ANT_TAG's recipes
+GRU_EPOCHS, PPO_EPOCHS = 2, 2  # at ppo_rnn.ANT_TAG's and ppo.ANT_TAG's recipes
 HTML_FRAMES = 300  # examples/train_ppo.py's evaluation rollout
 MIN_TAG_RATE = 0.95  # the JAX replay of the checkpoint reads 0.9922
 SAC_EPOCHS, GRU_SAC_EPOCHS, PER_EPOCHS = 4, 8, 2
@@ -256,11 +309,63 @@ MIN_SAC_TAG_RATE = 0.70
 # sac_rnn.ANT_TAG (2 x 256 envs, 2 x 64 sequences a grad step) with PER from
 # the 4th sequence, as phase_per
 MESH_RANKS, MESH_BACKEND = 2, "gloo"
-MESH_PPO_EPOCHS, MESH_SAC_EPOCHS = 3, 2  # the first PPO epoch builds and warms up
+MESH_PPO_EPOCHS, MESH_SAC_EPOCHS = 2, 2  # the first PPO epoch builds and warms up
 MESH_SAC = dataclasses.replace(sac_rnn.ANT_TAG, per_alpha=0.6, min_replay=4)
-GRU_SAC_RANK = f"{LEARNER},B={MESH_SAC.num_envs // MESH_RANKS}"  # a GRU-SAC rank's batch
+LEARNER_AT = {b: LEARNER if b == 2048 else f"{LEARNER},B={b}" for b in LEARNER_BATCHES}
+EVAL_EPISODES = 256  # the batch of every evaluator of the examples
+GRU_SAC_RANK = LEARNER_AT[MESH_SAC.num_envs // MESH_RANKS]  # a GRU-SAC rank's batch
 UPDATE_TOL = 5e-5  # parameters after an update on the same rollout (the learner tests')
 ALLREDUCE_REPS = 50
+# the examples phase. The (System, batch) pairs the examples add, held
+# against the plain step and timed: the PO ant tasks at the learners'
+# action_repeat 6 and GRU-PPO's 2048 envs (HeavenHell also at GRU-SAC's 512
+# and retuned to 8 substeps), `ant` masked at 2048, the masked pendulum at
+# PPO's 1024 and GRU-SAC's 64; then each of those Systems at the
+# evaluators' 256 episodes, and AntTag at visualize's one env and the rollout
+# demo's 16
+EXAMPLE_PO_SYSTEMS = (("ant_heavenhell,action_repeat=6", "ant_heavenhell", 2048, None),
+                      ("ant_gather,action_repeat=6", "ant_gather", 2048, None),
+                      ("ant_maze,action_repeat=6", "ant_maze", 2048, None),
+                      ("ant_heavenhell,action_repeat=6,B=512", "ant_heavenhell", 512, None),
+                      ("ant_heavenhell,substeps=8,action_repeat=6", "ant_heavenhell", 2048, 8),
+                      ("ant_heavenhell,action_repeat=6,B=256", "ant_heavenhell", 256, None),
+                      ("ant_heavenhell,substeps=8,action_repeat=6,B=256", "ant_heavenhell", 256,
+                       8),
+                      ("ant_gather,action_repeat=6,B=256", "ant_gather", 256, None),
+                      ("ant_maze,action_repeat=6,B=256", "ant_maze", 256, None))
+EXAMPLE_STOCK_SYSTEMS = (("ant,B=2048", "ant", 2048),
+                         ("inverted_pendulum,B=1024", "inverted_pendulum", 1024),
+                         ("inverted_pendulum,B=64", "inverted_pendulum", 64),
+                         ("ant,B=256", "ant", 256),
+                         ("inverted_pendulum,B=256", "inverted_pendulum", 256),
+                         ("ant_tag,B=1", "ant_tag", 1),
+                         ("ant_tag,B=16", "ant_tag", 16))
+# GRU-SAC epochs: min_replay 24 sequences at 4 an epoch fill in 6, so 7 take
+# one epoch of gradient steps and 8 two; the pendulum's min_replay 32 fills in 8
+# (the rollout demo's native path: NATIVE_DEMO_STEPS steps of 16 envs, naive,
+# twice)
+HH_SAC_EPOCHS, SAC_PHASE_EPOCHS, PENDULUM_SAC_EPOCHS = 7, 8, 9
+CARRY_EPOCHS = 1  # the carry run: its [carry | train] collection, no gradient step
+# the recipes' widths: GRU-PPO's and the masked ant's 2048 envs, GRU-SAC's 512
+GRU_ENVS, SAC_ENVS, MASKED_ANT_ENVS = ppo_rnn.ANT_TAG.num_envs, sac_rnn.ANT_TAG.num_envs, 2048
+CARRY_FRAC = 0.25
+NATIVE_DEMO_STEPS = 20
+SHAPING_STEPS = 10  # timed control steps of each side of a shaping pair
+# the examples phase's steps, run in three processes at once (EXAMPLE_PARTS):
+# every step is host-bound, its device idle most of the time. On an H100
+# host where one after another they took 590 s of a 1051 s script, each part
+# takes ~200 s
+EXAMPLE_STEPS = ("shaping", "a", "b", "c", "d", "e", "f", "g", "h")
+EXAMPLE_PARTS = (("shaping", "a", "b", "c"), ("d", "e", "g"), ("f", "h"))
+# the committed checkpoints' replays on 256 episodes. The maze's det goal
+# rate: JAX recorded 0.9961 (docs/learning_ant_maze_rnn.json). Gather: each
+# gate is the lowest of the JAX package's own values over reset seeds 0-4
+# (tools/eval_gather_checkpoint_seeds.py, on the CPU) less 0.5, about three
+# standard deviations of that spread, rounded down to 0.1
+REPLAY_GATES = {
+    "gather": {"det_apples": 5.3, "det_net": 2.1, "stoch_apples": 5.7, "stoch_net": 2.0},
+    "gather_bombmem": {"det_apples": 4.5, "det_net": 1.7, "stoch_apples": 6.0, "stoch_net": 2.2},
+    "maze": {"det_goal_rate": 0.95}}
 
 
 def fail(msg: str) -> None:
@@ -353,35 +458,41 @@ def push_ants(core, qp, axis: int, value: float, count: int = WALL_ENVS):
     return qp.replace(pos=pos)
 
 
-def phase_po_kernel_vs_plain(dev, name: str):
-    """Kernel against plain on a PO ant System after PO_WARM_STEPS plain steps
-    from a reset; ants pushed against a wall (PO_WALLS), or, for AntGather, its
-    pass-through bodies checked bit-equal with zero Info."""
-    env = create(name, episode_length=None, auto_reset=False, batch_size=B, device=dev)
+def phase_po_kernel_vs_plain(dev, name: str, batch: int = B, action_repeat: int = 1,
+                             substeps=None, tag=None):
+    """Kernel against plain on a PO ant System (`batch` envs; the integrator
+    retuned to `substeps` and scaled by `action_repeat`, the learners'
+    Systems) after PO_WARM_STEPS plain steps from a reset (3 at
+    action_repeat > 1); a sixteenth of the ants pushed against a wall
+    (PO_WALLS), or, for AntGather, its pass-through bodies checked bit-equal
+    with zero Info."""
+    env = create(name, episode_length=None, action_repeat=action_repeat, auto_reset=False,
+                 batch_size=batch, device=dev, substeps=substeps)
     sys_ = env.sys
+    tag = tag or name
     qp = env.reset(jr.PRNGKey(4, dev)).qp
     g = torch.Generator(device=dev).manual_seed(2)
-    qp = plain_steps(sys_, qp, PO_WARM_STEPS[name], g)
+    qp = plain_steps(sys_, qp, PO_WARM_STEPS[name] if action_repeat == 1 else 3, g)
     if name in PO_WALLS:
-        qp = push_ants(env.unwrapped, qp, *PO_WALLS[name])
+        qp = push_ants(env.unwrapped, qp, *PO_WALLS[name], count=batch * WALL_ENVS // B)
     live = live_rows(sys_, qp)
-    act = torch.rand(B, sys_.action_size, generator=g, device=dev) * 2 - 1
+    act = torch.rand(batch, sys_.action_size, generator=g, device=dev) * 2 - 1
     passes = step_tables.build(sys_)["pass_through"]
-    note = (f"; {len(passes)} pass-through bodies; envs with a live row: "
-            + ", ".join(f"{k} {v}" for k, v in live.items()))
-    max_err = compare(name, sys_, qp, act, note)
+    note = (f"; {sys_.config.substeps} substeps; {len(passes)} pass-through bodies; envs with a "
+            "live row: " + ", ".join(f"{k} {v}" for k, v in live.items()))
+    max_err = compare(tag, sys_, qp, act, note)
     if name in PO_WALLS and live.get("capsule_box", 0) == 0:
-        fail(f"{name}: no env touched a wall: the capsule-box rows went unchecked")
+        fail(f"{tag}: no env touched a wall: the capsule-box rows went unchecked")
     if name == "ant_gather":
         q, i = whole_step.launch(sys_, qp, act)
         same = all(torch.equal(getattr(q, f)[:, passes], getattr(qp, f)[:, passes])
                    for f in ("pos", "rot", "vel", "ang"))
         zero = not any(bool(t[:, passes].any()) for part in (i.contact, i.joint, i.actuator)
                        for t in (part.vel, part.ang))
-        print(f"[kernel-vs-plain:{name}] {len(passes)} pass-through bodies bit-equal to their "
+        print(f"[kernel-vs-plain:{tag}] {len(passes)} pass-through bodies bit-equal to their "
               f"input: {same}; their Info all zero: {zero}", flush=True)
         if len(passes) != 16 or not same or not zero:
-            fail("ant_gather's pass-through bodies were not passed through")
+            fail(f"{tag}: the pass-through bodies were not passed through")
     return sys_, qp, act, max_err
 
 
@@ -429,7 +540,7 @@ def live_rows(sys_, qp) -> dict:
     return out
 
 
-def phase_stock_kernel_vs_plain(dev, name: str, batch: int = B):
+def phase_stock_kernel_vs_plain(dev, name: str, batch: int = B, tag=None):
     """Kernel against plain on one stock System at `batch` envs, after
     STOCK_WARM_STEPS plain steps from a reset; grasp's Object is placed
     against finger f0's distal capsule (1.5 cm into it) in FINGER_ENVS envs."""
@@ -437,7 +548,7 @@ def phase_stock_kernel_vs_plain(dev, name: str, batch: int = B):
     sys_ = env.sys
     qp = env.reset(jr.PRNGKey(3, dev)).qp
     g = torch.Generator(device=dev).manual_seed(0)
-    qp = plain_steps(sys_, qp, STOCK_WARM_STEPS[name], g)
+    qp = plain_steps(sys_, qp, STOCK_WARM_STEPS.get(name, 5), g)
     if name == "grasp":
         dist, obj = sys_.body.index["f0_dist"], sys_.body.index["Object"]
         pos = qp.pos.clone()
@@ -448,7 +559,7 @@ def phase_stock_kernel_vs_plain(dev, name: str, batch: int = B):
     act = torch.rand(batch, sys_.action_size, generator=g, device=dev) * 2 - 1
     note = "; envs with a live row: " + (", ".join(f"{k} {v}" for k, v in live.items())
                                          or "no contact rows")
-    max_err = compare(name if batch == B else f"{name},B={batch}", sys_, qp, act, note)
+    max_err = compare(tag or (name if batch == B else f"{name},B={batch}"), sys_, qp, act, note)
     if name == "grasp" and live.get("capsule_capsule", 0) == 0:
         fail("grasp had no live capsule-capsule row: the two-body rows went unchecked")
     if name in ("ant", *PLANAR) and live.get("point_plane", 0) == 0:
@@ -819,8 +930,9 @@ def phase_per(dev, card: str, epochs: int) -> int:
 
 def phase_sac_checkpoint(dev, card: str) -> int:
     """The committed GRU-SAC checkpoint through `interop` on the card: the
-    checksum, then the tag rates at radius 20 and 4, the stochastic one at
-    radius 20 gated. Returns the replays' whole-step launches."""
+    checksum, then the tag rates det and stoch at radius 20 and 4, the
+    stochastic one at radius 20 gated. Returns the replays' whole-step
+    launches."""
     learner, ts, same = eval_tag_checkpoint.load(eval_tag_checkpoint.SAC_NPZ, device=dev,
                                                  sac=True)
     print(f"[checkpoint:gru_sac] {os.path.relpath(eval_tag_checkpoint.SAC_NPZ, ROOT)}: epochs "
@@ -870,7 +982,13 @@ class _SaveSpy:
             buffer = getattr(ts, "buffer", None)
             pri = getattr(ts, "priorities", None)
             self.saves.append({
-                "digest": _digest(ts.params), "epochs": ts.epochs,
+                "digest": _digest(ts.params), "epochs": ts.epochs, "step": step, "root": root,
+                # per env column, the share of stored steps whose last two
+                # observation entries (AntTag's target xy, zero out of
+                # sight) are not zero
+                "target_seen": None if buffer is None else (
+                    buffer.data["obs"][:buffer.size, ..., -2:] != 0).any(-1).float()
+                .mean((0, 1)).cpu().tolist(),
                 "buffer": None if buffer is None else {k: tuple(v.shape)
                                                        for k, v in buffer.data.items()},
                 "priorities": None if pri is None else tuple(pri.shape),
@@ -1176,6 +1294,556 @@ def phase_nccl(dev, card: str) -> None:
 
 
 
+# ---- the examples phase ------------------------------------------------------
+
+
+def _per_epoch(module: str, kw: dict):
+    """(env-steps an epoch as JAX counts them, kernel launches an epoch,
+    epochs a call) of a learner's `train(**kw)`."""
+    cls = {"ppo": ppo.PPOConfig, "ppo_rnn": ppo_rnn.RNNPPOConfig, "sac_rnn": sac_rnn.RSACConfig}
+    fields = {f.name for f in dataclasses.fields(cls[module])}
+    cfg = cls[module](**{k: v for k, v in kw.items() if k in fields})
+    if module == "sac_rnn":
+        steps = cfg.seqs_per_epoch * cfg.seq_len
+        return steps * cfg.num_envs * cfg.action_repeat, steps, 1
+    return (cfg.unroll_length * cfg.num_envs * cfg.action_repeat, cfg.unroll_length,
+            max(1, cfg.epochs_per_call))
+
+
+class _ExampleSpy:
+    """Watches the examples as they run, changing nothing: every `train` of
+    ppo, ppo_rnn and sac_rnn (wall, whole-step launches, the returned
+    history and parameters, the env's wrapper classes and its core's
+    substeps before and after), every ActionRepeatWrapper (each core env
+    must be rescaled once: a core shared between two stacks would be
+    rescaled twice), and, through `_SaveSpy`, every checkpoint save."""
+
+    def __init__(self):
+        self.trains, self.rescales = [], []
+        self._saves = _SaveSpy()
+
+    @property
+    def saves(self):
+        return self._saves.saves
+
+    def __enter__(self):
+        self._modules = {"ppo": ppo, "ppo_rnn": ppo_rnn, "sac_rnn": sac_rnn}
+        self._train = {name: m.train for name, m in self._modules.items()}
+        for name, m in self._modules.items():
+            m.train = self._wrap(name, self._train[name])
+        self._ar_init = wrappers.ActionRepeatWrapper.__init__
+        spy, ar_init = self, self._ar_init
+
+        def init(wrapper, env, action_repeat):
+            core = env.unwrapped
+            before = core.sys.config.substeps
+            ar_init(wrapper, env, action_repeat)
+            if action_repeat != 1:  # the core itself is kept: ids of freed objects recur
+                spy.rescales.append((core, type(core).__name__, before,
+                                     core.sys.config.substeps))
+
+        wrappers.ActionRepeatWrapper.__init__ = init
+        self._saves.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for name, m in self._modules.items():
+            m.train = self._train[name]
+        wrappers.ActionRepeatWrapper.__init__ = self._ar_init
+        self._saves.__exit__(*exc)
+
+    def _wrap(self, name, train):
+        def spied(env, *args, **kw):
+            chain, e = [], env
+            while isinstance(e, Wrapper):
+                chain.append(type(e).__name__)
+                e = e.env
+            before = e.sys.config.substeps
+            torch.cuda.synchronize()
+            launched, t0 = whole_step.launches, time.perf_counter()
+            out = train(env, *args, **kw)
+            torch.cuda.synchronize()
+            per_epoch, launches_per_epoch, per_call = _per_epoch(name, kw)
+            if kw.get("carry_env") is not None:
+                launches_per_epoch *= 2  # the carry columns' env steps apart: two launches
+            self.trains.append({
+                "learner": name, "wall": time.perf_counter() - t0,
+                "launches": whole_step.launches - launched, "history": out[2],
+                "params": out[1][1], "chain": chain + [type(e).__name__],
+                "substeps": (before, e.sys.config.substeps),
+                "epochs": len(out[2]) * per_call, "per_epoch": per_epoch,
+                "launches_per_epoch": launches_per_epoch, "num_envs": kw["num_envs"]})
+            return out
+        return spied
+
+    def take(self):
+        """The trains and rescales recorded since the last take."""
+        out = (self.trains, self.rescales)
+        self.trains, self.rescales = [], []
+        return out
+
+
+def _check_trains(tag: str, trains, card: str, action_repeat=None) -> float:
+    """Prints and checks each recorded train: one kernel launch a control
+    step, finite losses, the core's substeps scaled once by
+    `action_repeat` (ACTION_REPEAT unless given). Returns the trains'
+    env-steps."""
+    action_repeat = ACTION_REPEAT if action_repeat is None else action_repeat
+    steps = 0
+    for i, t in enumerate(trains):
+        env_steps = t["epochs"] * t["per_epoch"]
+        steps += env_steps
+        losses = [v for m in t["history"] for k, v in m.items() if "loss" in k or k == "alpha"]
+        print(f"[examples:{tag}] train {i + 1} ({t['learner']}, {' > '.join(t['chain'])}, "
+              f"{t['num_envs']} envs): {t['epochs']} epochs, {env_steps} env-steps in "
+              f"{t['wall']:.3f} s = {env_steps / t['wall']:.1f} env-steps/s, whole-step launches "
+              f"{t['launches']}; substeps {t['substeps'][0]} -> {t['substeps'][1]}; last "
+              + ", ".join(f"{k} {v:.6f}" for k, v in t["history"][-1].items()
+                          if k in ("total_loss", "q_loss", "actor_loss", "mean_reward"))
+              + f"; {card}", flush=True)
+        if t["launches"] != t["epochs"] * t["launches_per_epoch"]:
+            fail(f"{tag}: train {i + 1} launched the kernel {t['launches']} times, not "
+                 f"{t['epochs'] * t['launches_per_epoch']} (one a control step)")
+        if not losses or not all(np.isfinite(losses)):
+            fail(f"{tag}: train {i + 1} has no or a non-finite loss")
+        if t["substeps"][1] != t["substeps"][0] * action_repeat:
+            fail(f"{tag}: train {i + 1}'s core env went from {t['substeps'][0]} to "
+                 f"{t['substeps'][1]} substeps, not x{action_repeat}")
+    return steps
+
+
+def _check_rescales(tag: str, rescales, want_before) -> None:
+    """Every core env under an ActionRepeatWrapper was rescaled once, from
+    its own substeps (`want_before`: a number or a set of numbers)."""
+    ids = [id(r[0]) for r in rescales]
+    befores = {r[2] for r in rescales}
+    want = {want_before} if isinstance(want_before, int) else set(want_before)
+    print(f"[examples:{tag}] ActionRepeatWrapper rescaled {len(ids)} core envs, each once: "
+          f"{len(set(ids)) == len(ids)}; substeps before {sorted(befores)} -> after "
+          f"{sorted({r[3] for r in rescales})}", flush=True)
+    if len(set(ids)) != len(ids) or not befores <= want:
+        fail(f"{tag}: a core env was rescaled twice (a shared core), or from {befores}")
+
+
+def _take_shapes() -> dict:
+    """The whole-step launches per (substeps, batch) since the last take."""
+    out = dict(whole_step.launches_by_shape)
+    whole_step.launches_by_shape.clear()
+    return out
+
+
+def _step_line(tag: str, t0: float, launches: int, train_steps: float, card: str,
+               lap) -> None:
+    wall = time.perf_counter() - t0
+    print(f"[examples:{tag}] wall {wall:.3f} s, trained env-steps {train_steps:.0f} "
+          f"({train_steps / wall:.1f} env-steps/s over the whole step, evaluations included), "
+          f"whole-step launches {launches}; {card}", flush=True)
+    lap(f"examples:{tag}")
+
+
+def phase_examples(dev, card: str, tmp: str, lap, which=EXAMPLE_STEPS) -> dict:
+    """The steps of the examples phase named in `which` ("shaping", then
+    (a)-(h) as the module docstring lists them), in that order; -> the
+    whole-step launches of each (System, batch) entry."""
+    launches = {}
+
+    def count(tag, entries):
+        """Adds the launches since `start()` to the entry of their (substeps,
+        batch) in `entries`; fails on a launch at a pair that no entry holds
+        against the plain step."""
+        shapes = _take_shapes()
+        stray = sorted(set(shapes) - set(entries))
+        print(f"[examples:{tag}] whole-step launches per entry: " + ", ".join(
+            f"{entries[k]} {n}" for k, n in sorted(shapes.items()) if k in entries), flush=True)
+        if stray:
+            fail(f"{tag}: launches at (substeps, batch) {stray}, which no entry compares")
+        for shape, n in shapes.items():
+            launches[entries[shape]] = launches.get(entries[shape], 0) + n
+
+    def start():
+        torch.cuda.synchronize()
+        whole_step.launches = 0
+        _take_shapes()
+        return time.perf_counter()
+
+    # each core env's own substeps (every PO ant task's 10), the learners'
+    # 60 and HH_SUBSTEPS=8's 48 under ActionRepeat(6), the evaluators' batch
+    sub = {n: _envs[n](device=dev).sys.config.substeps
+           for n in ("ant_tag", "ant", "inverted_pendulum")}
+    x6, x8, ev = sub["ant_tag"] * ACTION_REPEAT, 8 * ACTION_REPEAT, EVAL_EPISODES
+
+    # the recipes' budgets: a GRU-PPO epoch at GRU_ENVS, a call of 8, a
+    # GRU-SAC epoch at SAC_ENVS
+    cfg = dataclasses.replace(ppo_rnn.ANT_TAG, num_envs=GRU_ENVS)
+    per_epoch = cfg.unroll_length * cfg.num_envs * ACTION_REPEAT
+    call = 8 * per_epoch
+    sac_cfg = train_ant_tag_sac_rnn.RECIPE
+    sac_epoch = sac_cfg["seqs_per_epoch"] * sac_cfg["seq_len"] * SAC_ENVS * ACTION_REPEAT
+
+    if "shaping" in which:
+        phase_shaping_overhead(dev, card)
+        lap("examples:shaping overhead")
+    if "a" in which:
+        # (a)'s initial parameters as train() makes them from the seed (its
+        # probe's env stack stays out of the spy's rescale count)
+        probe = ppo_rnn.RNNPPOLearner(ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "naive"),
+                                      cfg)
+        initial = params_vector(probe.make_params(jr.split(jr.PRNGKey(0, dev), 3)[1]))
+        del probe
+    with _ExampleSpy() as spy:
+        if "a" in which:
+            # (a) the main path: the AntTag curriculum, one epoch a phase
+            curriculum = tuple((r, (i + 1) * per_epoch)
+                               for i, (r, _) in enumerate(train_ant_tag_rnn.CURRICULUM))
+            out = os.path.join(tmp, "tag_curriculum.json")
+            t0 = start()
+            det = train_ant_tag_rnn.main_curriculum(cfg.num_envs, os.path.join(tmp, "tag_ckpt"),
+                                                    curriculum, seed=0, device=dev, out=out)
+            n = whole_step.launches
+            trains, rescales = spy.take()
+            with open(out) as f:
+                record = json.load(f)
+            steps = _check_trains("tag_curriculum", trains, card)
+            _check_rescales("tag_curriculum", rescales, 10)
+            saves = [(s["epochs"]) for s in spy.saves[-3:]]
+            moved = float((params_vector(trains[-1]["params"]) - initial).abs().max())
+            print(f"[examples:tag_curriculum] phases at visible radius "
+                  f"{[r for r, _ in curriculum]}, {len(trains)} trains of one epoch, the "
+                  f"checkpoint resumed at each boundary: epochs saved {saves}; largest parameter "
+                  f"change {moved:.6e}; true-env tag rate on 256 episodes det {det:.4f} / stoch "
+                  f"{record['true_tag_rate_stoch']:.4f} (reported, not gated: the policy has "
+                  f"trained 3 epochs); evaluation launches "
+                  f"{n - sum(t['launches'] for t in trains)}",
+                  flush=True)
+            if len(trains) != 3 or saves != [1, 2, 3] or not all(t["epochs"] == 1 for t in trains):
+                fail("the AntTag curriculum did not resume one checkpoint across its three phases")
+            if not np.isfinite(moved) or moved == 0.0 or len(rescales) != 5:
+                fail("the AntTag curriculum's parameters did not move, or its envs were not each "
+                     "rescaled once")
+            count("tag_curriculum", {(x6, cfg.num_envs): LEARNER, (x6, ev): LEARNER_AT[ev]})
+            _step_line("tag_curriculum", t0, n, steps, card, lap)
+
+        if "b" in which:
+            # (b) the checkpoint replays
+            for name in eval_checkpoint.CHECKPOINTS:
+                t0 = start()
+                got = eval_checkpoint.main(name, device=dev)
+                n = whole_step.launches
+                env_name = eval_checkpoint.CHECKPOINTS[name][0]
+                count(f"replay:{name}", {(x6, ev): f"{env_name},action_repeat=6,B={ev}"})
+                gates = REPLAY_GATES[name]
+                print(f"[examples:replay:{name}] checksum equal: {got['checksum_ok']}; "
+                      + ", ".join(f"{k} {got[k]:.4f} (gate >= {v})" for k, v in gates.items())
+                      + f"; whole-step launches {n}", flush=True)
+                if not got["checksum_ok"] or not all(got[k] >= v for k, v in gates.items()):
+                    fail(f"the {name} checkpoint's replay fails its gates")
+                _step_line(f"replay:{name}", t0, n, 0, card, lap)
+
+        if "c" in which:
+            # (c) the gather curriculum at the bombmem02 recipe, one call a phase
+            knobs = train_ant_gather_rnn.GatherKnobs(
+                curriculum=((14.0, call), (6.0, 2 * call), (6.0, 3 * call)),
+                novelty=(0.25, 0.25, 0.0), bomb_memory=0.2)
+            t0 = start()
+            record = train_ant_gather_rnn.main_curriculum(
+                cfg.num_envs, os.path.join(tmp, "gather_ckpt"), knobs, device=dev,
+                out=os.path.join(tmp, "gather.json"))
+            n = whole_step.launches
+            trains, rescales = spy.take()
+            steps = _check_trains("gather_curriculum", trains, card)
+            _check_rescales("gather_curriculum", rescales, 10)
+            chain = ["GridNoveltyBonusWrapper", "ShapedAntGather"]
+            if ([t["chain"][:2] for t in trains] != [chain] * 3
+                    or [t["epochs"] for t in trains] != [8, 8, 8]):
+                fail("the gather curriculum did not train 8 epochs a phase on the novelty-wrapped "
+                     "shaped env")
+            print(f"[examples:gather_curriculum] gather_eval on 256 episodes: "
+                  + ", ".join(f"{m} apples {v['apples']:.4f} bombs {v['bombs']:.4f}"
+                              for m, v in record["results"].items()), flush=True)
+            count("gather_curriculum", {(x6, cfg.num_envs): "ant_gather,action_repeat=6",
+                                        (x6, ev): f"ant_gather,action_repeat=6,B={ev}"})
+            _step_line("gather_curriculum", t0, n, steps, card, lap)
+
+        if "d" in which:
+            # (d) the maze's main: the random policy's goal rate, one call of 8
+            # epochs (the checkpoint written under its own directory), then the
+            # GRU policy's goal rates det and stoch
+            t0 = start()
+            maze_ckpt = os.path.join(tmp, "maze_ckpt")
+            record = train_ant_maze_rnn.main(call, cfg.num_envs, checkpoint_dir=maze_ckpt,
+                                             device=dev, out=os.path.join(tmp, "maze.json"))
+            n = whole_step.launches
+            trains, rescales = spy.take()
+            steps = _check_trains("maze", trains, card)
+            _check_rescales("maze", rescales, 10)
+            rates = [record["random_goal_rate"], record["results"]["det"],
+                     record["results"]["stoch"]]
+            print(f"[examples:maze] main at MAZE_SEED {record['seed']}: goal rate on 256 episodes "
+                  f"random {rates[0]:.4f}, GRU det {rates[1]:.4f}, stoch {rates[2]:.4f}; saved "
+                  f"epochs {spy.saves[-1]['epochs']} under "
+                  f"{os.path.relpath(spy.saves[-1]['root'], tmp)}",
+                  flush=True)
+            if (trains[0]["epochs"] != 8 or spy.saves[-1]["epochs"] != 8
+                    or spy.saves[-1]["root"] != maze_ckpt or not all(0 <= r <= 1 for r in rates)):
+                fail("the maze did not train one call of 8 epochs into its checkpoint dir, or a "
+                     "goal rate is not a rate")
+            count("maze", {(x6, cfg.num_envs): "ant_maze,action_repeat=6",
+                           (x6, ev): f"ant_maze,action_repeat=6,B={ev}"})
+            _step_line("maze", t0, n, steps, card, lap)
+
+        if "e" in which:
+            # (e) HeavenHell's main, an epoch at 10 substeps and one at
+            # HH_SUBSTEPS=8 (with the transfer evaluation on the true 10), each
+            # with the random and GRU outcome rates; then the GRU-SAC recipe's
+            t0 = start()
+            hh = {}
+            hh[10] = train_heavenhell_rnn.main(per_epoch, cfg.num_envs, device=dev,
+                                               out=os.path.join(tmp, "hh10.json"))
+            saved = os.environ.get("HH_SUBSTEPS")
+            os.environ["HH_SUBSTEPS"] = "8"
+            try:
+                hh[8] = train_heavenhell_rnn.main(per_epoch, cfg.num_envs, device=dev,
+                                                  out=os.path.join(tmp, "hh8.json"))
+            finally:
+                if saved is None:
+                    del os.environ["HH_SUBSTEPS"]
+                else:
+                    os.environ["HH_SUBSTEPS"] = saved
+            hh_sac = train_heavenhell_sac_rnn.RECIPE
+            hh_epoch = hh_sac["seqs_per_epoch"] * hh_sac["seq_len"] * SAC_ENVS * ACTION_REPEAT
+            hh["sac"] = train_heavenhell_sac_rnn.main(HH_SAC_EPOCHS * hh_epoch, SAC_ENVS,
+                                                      device=dev,
+                                                      out=os.path.join(tmp, "hh_sac.json"))
+            n = whole_step.launches
+            trains, rescales = spy.take()
+            steps = _check_trains("heavenhell", trains, card)
+            _check_rescales("heavenhell", rescales, {10, 8})
+            outcomes = {f"{run}:{k}": v for run, rec in hh.items() for k, v in rec.items()
+                        if isinstance(v, dict) and "completion" in v}
+            print(f"[examples:heavenhell] substeps of the trained cores "
+                  f"{[t['substeps'] for t in trains]}; outcome_rates on 256 episodes (completion, "
+                  f"heaven | completed): " + ", ".join(
+                      f"{k} {v['completion']:.4f} / {v['heaven']:.4f}" for k, v in outcomes.items())
+                  + f"; GRU-SAC last q_loss {trains[-1]['history'][-1]['q_loss']:.6f}", flush=True)
+            if ([t["substeps"] for t in trains] != [(10, x6), (8, x8), (10, x6)]
+                    or (hh[10]["substeps"], hh[8]["substeps"]) != (10, 8)
+                    or "gru_det_on_true_substeps10" not in hh[8]
+                    or "gru_det_on_true_substeps10" in hh[10]
+                    or not trains[-1]["history"][-1]["q_loss"] > 0):
+                fail("HeavenHell: wrong substeps, no transfer evaluation at HH_SUBSTEPS=8, or "
+                     "GRU-SAC took no gradient step")
+            if not all(0 <= v[k] <= 1 for v in outcomes.values() for k in ("completion", "heaven")):
+                fail("HeavenHell: an outcome rate is not a rate")
+            count("heavenhell", {(x6, cfg.num_envs): "ant_heavenhell,action_repeat=6",
+                                 (x8, cfg.num_envs): "ant_heavenhell,substeps=8,action_repeat=6",
+                                 (x6, SAC_ENVS): f"ant_heavenhell,action_repeat=6,B={SAC_ENVS}",
+                                 (x6, ev): f"ant_heavenhell,action_repeat=6,B={ev}",
+                                 (x8, ev): f"ant_heavenhell,substeps=8,action_repeat=6,B={ev}"})
+            _step_line("heavenhell", t0, n, steps, card, lap)
+
+        if "f" in which:
+            # (f) GRU-SAC phase 0 past min_replay, then the carry run, each with
+            # its tag rates det and stoch at two radii
+            export_epochs = int(ckpt.load_npz(train_ant_tag_sac_rnn_carry.PHASE0)["epochs"])
+            t0 = start()
+            phase0 = train_ant_tag_sac_rnn.run_phase(0, SAC_ENVS, os.path.join(tmp, "sac_ckpt"),
+                                                     budget=SAC_PHASE_EPOCHS * sac_epoch,
+                                                     device=dev, out=os.path.join(tmp, "sac0.json"))
+            phase0_saves = spy.saves[-1]
+            carried = train_ant_tag_sac_rnn_carry.main(
+                CARRY_FRAC, 0, SAC_ENVS, os.path.join(tmp, "carry_ckpt"),
+                num_timesteps=(export_epochs + CARRY_EPOCHS) * sac_epoch, device=dev,
+                out=os.path.join(tmp, "carry.json"))
+            carry = spy.saves[-1]
+            tag_rates = {**{f"phase0:{k}": v for k, v in phase0["results"].items()},
+                         **{f"carry:{k}": v for k, v in carried["results"].items()}}
+            n = whole_step.launches
+            trains, rescales = spy.take()
+            steps = _check_trains("gru_sac", trains, card)
+            _check_rescales("gru_sac", rescales, 10)
+            seen = np.asarray(carry["target_seen"])
+            k = round(CARRY_FRAC * SAC_ENVS)
+            print(f"[examples:gru_sac] run_phase(0): {trains[0]['epochs']} epochs, saved epochs "
+                  f"{phase0_saves['epochs']}, last q_loss "
+                  f"{trains[0]['history'][-1]['q_loss']:.6f}; carry: resumed the phase-0 export "
+                  f"({export_epochs} epochs), saved epochs {carry['epochs']}; replay "
+                  f"{carry['buffer']['obs']}: the target seen in {seen[:k].mean():.4f} of the "
+                  f"carry columns' (radius 20) steps and {seen[k:].mean():.4f} of the train "
+                  f"columns' (radius 4); tag rates on 256 episodes: "
+                  + ", ".join(f"{name} {v:.4f}" for name, v in tag_rates.items()), flush=True)
+            if len(tag_rates) != 8 or not all(0 <= v <= 1 for v in tag_rates.values()):
+                fail("GRU-SAC: the drivers did not report their eight tag rates")
+            if (phase0_saves["epochs"] != SAC_PHASE_EPOCHS or carry["epochs"]
+                    != export_epochs + CARRY_EPOCHS or not trains[0]["history"][-1]["q_loss"] > 0):
+                fail("GRU-SAC: the epoch counts or the gradient steps are not as planned")
+            if not seen[:k].min() > 0.99 or not seen[k:].mean() < seen[:k].mean() - 0.1:
+                fail("the carry run's replay does not hold [carry | train] columns")
+            count("gru_sac", {(x6, b): LEARNER_AT[b]
+                              for b in (SAC_ENVS, ev, SAC_ENVS - k, k)})
+            _step_line("gru_sac", t0, n, steps, card, lap)
+
+        if "g" in which:
+            # (g) the masked studies
+            t0 = start()
+            masked_ant = train_masked_ant.main(32 * MASKED_ANT_ENVS, MASKED_ANT_ENVS, device=dev,
+                                               out=os.path.join(tmp, "masked_ant.json"))
+            pendulum = train_masked_pendulum.main(32 * 1024, device=dev,
+                                                  out=os.path.join(tmp, "pendulum.json"))
+            sac_pendulum = train_sac_rnn_pendulum.main(PENDULUM_SAC_EPOCHS * 4 * 16 * 64,
+                                                       device=dev,
+                                                       out=os.path.join(tmp, "pendulum.json"))
+            n = whole_step.launches
+            trains, rescales = spy.take()
+            steps = _check_trains("masked", trains, card, action_repeat=1)
+            print(f"[examples:masked] ant ({MASKED_ANT_ENVS} envs): "
+                  + ", ".join(f"{k} {v}" for k, v in masked_ant.items() if isinstance(v, dict))
+                  + f"; pendulum (1024 envs): " + ", ".join(
+                      f"{k} {pendulum[k]:.2f}" for k in ("feedforward_full_obs",
+                                                          "feedforward_masked", "gru_masked"))
+                  + f"; GRU-SAC pendulum (64 envs) {sac_pendulum['gru_sac_masked']:.2f}",
+                  flush=True)
+            if [t["epochs"] for t in trains] != [1] * 6 + [PENDULUM_SAC_EPOCHS] or rescales:
+                fail("the masked studies did not train as planned")
+            a, p = sub["ant"], sub["inverted_pendulum"]
+            count("masked", {(a, MASKED_ANT_ENVS): f"ant,B={MASKED_ANT_ENVS}",
+                             (a, ev): f"ant,B={ev}", (p, 1024): "inverted_pendulum,B=1024",
+                             (p, 64): "inverted_pendulum,B=64",
+                             (p, ev): f"inverted_pendulum,B={ev}"})
+            _step_line("masked", t0, n, steps, card, lap)
+
+    if "h" in which:
+        # (h) the renderer and the rollout demo's native path
+        t0 = start()
+        page = visualize.main("ant_tag", HTML_FRAMES, os.path.join(tmp, "ant_tag_random.html"),
+                              device=dev)
+        with open(page) as f:
+            frames = json.loads(re.search(r"const FRAMES\s*=\s*(.*?);\n", f.read(),
+                                          re.DOTALL).group(1))
+        demo = rollout_demo.native_path("ant_tag", 16, NATIVE_DEMO_STEPS, device=dev)
+        n = whole_step.launches
+        print(f"[examples:render] visualize: {len(frames)} frames; rollout_demo.native_path "
+              f"{demo['env_steps_per_s']:.1f} env-steps/s, mean reward {demo['mean_reward']:.4f}",
+              flush=True)
+        if len(frames) != HTML_FRAMES or n != HTML_FRAMES + 2 * NATIVE_DEMO_STEPS:
+            fail("visualize or the rollout demo missed the kernel")
+        count("render", {(sub["ant_tag"], 1): "ant_tag,B=1", (sub["ant_tag"], 16): "ant_tag,B=16"})
+        _step_line("render", t0, n, 0, card, lap)
+
+    return launches
+
+
+def _examples_part(which, tmp: str, out: str) -> None:
+    """One process of the examples phase: the steps `which` on the card, in
+    `tmp`; writes the whole-step launches of each entry to `out` (JSON)."""
+    dev = torch.device("cuda")
+    t0 = last = time.perf_counter()
+    part = "+".join(which)
+
+    def lap(label: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[clock] {label}: {now - last:.1f} s; {now - t0:.1f} s since part {part} began",
+              flush=True)
+        last = now
+
+    launches = phase_examples(dev, card_line(), tmp, lap, which)
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def phase_examples_parallel(tmp: str) -> dict:
+    """Runs each part of EXAMPLE_PARTS in a spawned process of its own, all at
+    once (the parent holds a CUDA context, and the kernel it built is loaded
+    from build/); if one fails the others are stopped and the phase fails.
+    -> the whole-step launches of each entry, summed over the parts."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+    for i, which in enumerate(EXAMPLE_PARTS):
+        part_dir = os.path.join(tmp, f"part{i}")
+        os.makedirs(part_dir)
+        proc = ctx.Process(target=_examples_part,
+                           args=(which, part_dir, os.path.join(part_dir, "launches.json")))
+        proc.start()
+        procs.append((proc, part_dir))
+    try:
+        while any(proc.is_alive() for proc, _ in procs):
+            if any(proc.exitcode not in (None, 0) for proc, _ in procs):
+                break
+            time.sleep(1.0)
+    finally:
+        for proc, _ in procs:
+            if proc.is_alive():
+                proc.terminate()
+        for proc, _ in procs:
+            proc.join()
+    failed = [which for (proc, _), which in zip(procs, EXAMPLE_PARTS) if proc.exitcode != 0]
+    if failed:
+        fail(f"the examples' parts {failed} failed (exit codes "
+             f"{[proc.exitcode for proc, _ in procs]})")
+    launches = {}
+    for _, part_dir in procs:
+        with open(os.path.join(part_dir, "launches.json")) as f:
+            for key, n in json.load(f).items():
+                launches[key] = launches.get(key, 0) + n
+    return launches
+
+
+def phase_shaping_overhead(dev, card: str) -> None:
+    """What each shaped wrapper adds to a control step of the learners'
+    stack (ActionRepeat(6) -> Episode(1000) -> Vmap(GRU_ENVS) -> cached
+    autoreset, random actions): host ms per step over SHAPING_STEPS steps,
+    unshaped and shaped in turns (plain, shaped, shaped, plain), and the
+    device kernels launched per step in a traced window of 3."""
+    cfg = dataclasses.replace(ppo_rnn.ANT_TAG, num_envs=GRU_ENVS)
+    cases = (("ShapedAntTag", "ant_tag", lambda e: train_ant_tag.ShapedAntTag(e, coef=5.0)),
+             ("ShapedHeavenHell", "ant_heavenhell",
+              lambda e: train_heavenhell_rnn.ShapedHeavenHell(e, coef=5.0)),
+             ("ShapedAntGather", "ant_gather",
+              lambda e: train_ant_gather_rnn.ShapedAntGather(e, coef=5.0, bomb_coef=0.3)),
+             ("ShapedAntMaze", "ant_maze",
+              lambda e: train_ant_maze_rnn.ShapedAntMaze(e, coef=5.0)))
+    for tag, name, shape in cases:
+        stacks = {}
+        for kind in ("plain", "shaped"):
+            core = _envs[name](device=dev)
+            env = ppo.wrap_for_training(shape(core) if kind == "shaped" else core, cfg, "cached")
+            stacks[kind] = [env, env.reset(jr.split(jr.PRNGKey(0, dev), cfg.num_envs))]
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def run(kind, n):
+            env, state = stacks[kind]
+            for _ in range(n):
+                state = env.step(state, torch.rand(cfg.num_envs, env.action_size, generator=g,
+                                                   device=dev) * 2 - 1)
+            stacks[kind][1] = state
+
+        ms = {"plain": [], "shaped": []}
+        for kind in ("plain", "shaped", "shaped", "plain"):
+            run(kind, 3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(kind, SHAPING_STEPS)
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3 / SHAPING_STEPS)
+        kernels = {k: len(_trace(lambda: run(k, 3))) / 3 for k in ("plain", "shaped")}
+        print(f"[shaping:{tag}] {name}, {cfg.num_envs} envs, action_repeat {ACTION_REPEAT}, "
+              f"cached: host ms a control step unshaped {ms['plain'][0]:.4f} / "
+              f"{ms['plain'][1]:.4f}, shaped {ms['shaped'][0]:.4f} / {ms['shaped'][1]:.4f}; "
+              f"device kernels a step {kernels['plain']:.1f} -> {kernels['shaped']:.1f} "
+              f"(+{kernels['shaped'] - kernels['plain']:.1f}); {card}", flush=True)
+
+
+def phase_examples_kernel_vs_plain(dev) -> dict:
+    """The kernel against the plain step on each (System, batch) the examples
+    add: -> {entry: (sys, qp, act, max |err|)}."""
+    out = {}
+    for key, name, batch, substeps in EXAMPLE_PO_SYSTEMS:
+        out[key] = phase_po_kernel_vs_plain(dev, name, batch, ACTION_REPEAT, substeps, key)
+    for key, name, batch in EXAMPLE_STOCK_SYSTEMS:
+        out[key] = phase_stock_kernel_vs_plain(dev, name, batch, key)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1222,24 +1890,28 @@ def main() -> None:
     # and its 4096-env case is timed beside it
     timed_only = {"ant": compared["ant"]}
     compared["ant"] = phase_stock_kernel_vs_plain(dev, "ant", sac.ANT.num_envs)
-    learner_cases = phase_learner_kernel_vs_plain(dev)
-    compared[LEARNER] = learner_cases[2048]
-    # a GRU-SAC rank of the multi-process phase steps 256 envs: an entry of its own
-    compared[GRU_SAC_RANK] = learner_cases[MESH_SAC.num_envs // MESH_RANKS]
-    warps[GRU_SAC_RANK] = warps[LEARNER]
+    # the learners' System at each batch it is stepped at (PPO's 4096, the
+    # evaluations' and a GRU-SAC rank's 256, ...): an entry each
+    for batch, case in phase_learner_kernel_vs_plain(dev).items():
+        compared[LEARNER_AT[batch]] = case
+        warps[LEARNER_AT[batch]] = warps[LEARNER]
     lap("kernel-vs-plain:ant at SAC's batch, the learners' System")
+    examples_cases = phase_examples_kernel_vs_plain(dev)
+    compared.update(examples_cases)
+    warps.update({k: whole_step.resident_warps(c[0]) for k, c in examples_cases.items()})
+    lap("kernel-vs-plain:the examples' Systems")
     for path in FIXTURES:
         phase_fixture(dev, path)
         lap(f"fixture:{os.path.basename(path)}")
     launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
-    phase_main(dev, "ant_tag", "naive", card, steps=OTHER_STEPS)
+    phase_main(dev, "ant_tag", "naive", card, steps=NAIVE_STEPS)
     for name in MASKED_MAIN:
         launches[name] = phase_main(dev, name, "cached", card, masked=True)
     for name in MASKED_OTHER:
         launches[name] = phase_main(dev, name, "cached", card, steps=OTHER_STEPS, masked=True)
     for name in PO_MAIN:
         launches[name] = phase_main(dev, name, "cached", card)
-    launches["ant_gather"] += phase_main(dev, "ant_gather", "naive", card, steps=OTHER_STEPS)
+    launches["ant_gather"] += phase_main(dev, "ant_gather", "naive", card, steps=NAIVE_STEPS)
     launches[CONTACT] = phase_main(dev, "ant_tag", "cached", card, steps=OTHER_STEPS,
                                    info="contact")
     lap("main paths of the ant, masked and PO envs")
@@ -1248,8 +1920,10 @@ def main() -> None:
         lap(f"main:{name}")
     launches["acrobot"] = phase_main(dev, "acrobot", "cached", card, steps=OTHER_STEPS)
     lap("main:acrobot")
-    launches[LEARNER] = (phase_train(dev, card, "gru")[0] + phase_train(dev, card, "ppo")[0]
-                         + phase_checkpoint(dev, card))
+    ppo_at = LEARNER_AT[ppo.ANT_TAG.num_envs]
+    launches[LEARNER] = phase_train(dev, card, "gru")[0]
+    launches[ppo_at] = phase_train(dev, card, "ppo")[0]
+    launches[GRU_SAC_RANK] = phase_checkpoint(dev, card)  # 256 episodes
     lap("train:gru, train:ppo, checkpoint")
     trained, inference_fn, params = phase_train(dev, card, "ppo_halfcheetah")
     launches[f"halfcheetah,B={ppo.HALFCHEETAH.num_envs}"] = trained
@@ -1260,21 +1934,27 @@ def main() -> None:
           "adapters (create_gym_env) are held by the CPU tests, tests/test_torch_gym_adapter.py",
           flush=True)
     launches["ant"] = phase_off_policy(dev, card, "sac", SAC_EPOCHS)
-    launches[LEARNER] += (phase_off_policy(dev, card, "gru_sac", GRU_SAC_EPOCHS)
-                          + phase_per(dev, card, PER_EPOCHS)
-                          + phase_sac_checkpoint(dev, card))
+    sac_at = LEARNER_AT[sac_rnn.ANT_TAG.num_envs]
+    launches[sac_at] = (phase_off_policy(dev, card, "gru_sac", GRU_SAC_EPOCHS)
+                        + phase_per(dev, card, PER_EPOCHS))
+    launches[GRU_SAC_RANK] += phase_sac_checkpoint(dev, card)
     lap("sac, gru_sac, per, sac checkpoint")
     with tempfile.TemporaryDirectory() as tmp:
-        mesh_ppo, launches[GRU_SAC_RANK] = phase_mesh(dev, card, tmp)
+        mesh_ppo, mesh_sac = phase_mesh(dev, card, tmp)
     launches[LEARNER] += mesh_ppo
+    launches[GRU_SAC_RANK] += mesh_sac
     lap("mesh: first step, PPO, update, GRU-SAC (2 ranks, gloo)")
     # the single process again after the ranks: its epochs beside theirs
-    launches[LEARNER] += phase_train(dev, card, "ppo")[0]
+    launches[ppo_at] += phase_train(dev, card, "ppo")[0]
     lap("train:ppo, after the ranks")
     phase_dryrun(dev, card)
     lap("mesh: graft entry, dryrun_multichip (2 ranks, gloo)")
     phase_nccl(dev, card)
     lap("mesh: one-rank nccl")
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, n in phase_examples_parallel(tmp).items():
+            launches[key] = launches.get(key, 0) + n
+    lap(f"examples, {len(EXAMPLE_PARTS)} processes at once")
 
     entries = []
     cases = [(name, case, True) for name, case in compared.items()]
@@ -1282,7 +1962,7 @@ def main() -> None:
                                                            for n, c in timed_only.items()]:
         kernel_ms = cuda_ms(lambda: whole_step.launch(sys_, qp, act), reps=50)
         kernel_dev_ms = device_ms(lambda: whole_step.launch(sys_, qp, act))
-        plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=5)
+        plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=2)
         batch = qp.pos.shape[0]
         bound, bound_by = whole_step.bound_ms(sys_, batch)
         print(f"[times:{name}] one control step at B={batch}: kernel {kernel_ms:.4f} ms per launch "
@@ -1295,7 +1975,7 @@ def main() -> None:
             "name": f"whole_step[{name}]", "route": "cuda",
             "source": "pobrax_tpu_torch/csrc/whole_step.cu",
             "replaces": "pobrax_tpu/physics/pallas_step.py:119",
-            "launches": launches[name], "max_abs_err": max_err,
+            "launches": launches.get(name, 0), "max_abs_err": max_err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "warps_per_sm": warps[name], "device_ms": kernel_dev_ms})
     lap("times")

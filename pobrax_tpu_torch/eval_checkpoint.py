@@ -1,0 +1,146 @@
+"""Replay a committed AntGather or AntMaze GRU-PPO checkpoint with the port.
+
+Loads the numpy export (`tools/export_torch_checkpoint.py`) of
+checkpoints/ant_gather_rnn_800M (`--gather`), ant_gather_rnn_bombmem02_1B
+(`--gather-bombmem`) or ant_maze_rnn_400M (`--maze`), checks the loaded
+parameters against the checksum stored beside them, and reports the
+example's own evaluator on 256 episodes under ActionRepeat(6) ->
+Episode(1000) -> Vmap, deterministic and stochastic, both at reset seed 0 as
+the JAX examples evaluate them: `gather_eval` of
+examples/train_ant_gather_rnn.py (apples and bombs per episode), or
+`goal_rate_rnn` of examples/train_ant_maze_rnn.py. `--seeds S ...` runs
+both at each seed instead (tools/eval_gather_checkpoint_seeds.py is the JAX
+package's column). `--html OUT` also writes the deterministic episode of
+tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
+(300 frames).
+
+Usage: python -m pobrax_tpu_torch.eval_checkpoint --gather|--gather-bombmem|--maze
+       [--device cpu] [--episodes N] [--seeds S ...] [--html OUT]
+(the card unless a device is named)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from pobrax_tpu_torch import interop
+from pobrax_tpu_torch import random as jr
+from pobrax_tpu_torch.device import resolve
+from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs, wrappers
+from pobrax_tpu_torch.examples._common import make_parent, split2
+from pobrax_tpu_torch.examples.train_ant_gather_rnn import HIDDEN, gather_eval
+from pobrax_tpu_torch.examples.train_ant_maze_rnn import goal_rate_rnn
+from pobrax_tpu_torch.io import html
+from pobrax_tpu_torch.training import checkpoint as ckpt
+from pobrax_tpu_torch.training import ppo_rnn
+
+_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
+# name -> (env, npz, frames of the rendered episode)
+CHECKPOINTS = {"gather": ("ant_gather", "ant_gather_rnn_800M.npz", 500),
+               "gather_bombmem": ("ant_gather", "ant_gather_rnn_bombmem02_1B.npz", 500),
+               "maze": ("ant_maze", "ant_maze_rnn_400M.npz", 300)}
+
+
+def npz_path(name: str) -> str:
+    return os.path.join(_DIR, CHECKPOINTS[name][1])
+
+
+def load(name: str, device=None):
+    """-> (learner, training state, checksum matches): an RNNPPOLearner at
+    the examples' widths (hidden 128, encoder (256,)) for the checkpoint's
+    env, with its state loaded on `device`."""
+    env = _envs[CHECKPOINTS[name][0]](device=resolve(device))
+    learner = ppo_rnn.RNNPPOLearner(env, ppo_rnn.ANT_TAG)
+    tree = ckpt.load_npz(npz_path(name))
+    ts = interop.training_state_from_numpy(tree, learner)
+    same = interop.params_checksum(interop.params_to_numpy(ts.params)) == tree["params_sha256"]
+    return learner, ts, same
+
+
+def evaluate(name: str, learner, ts, episodes: int = 256,
+             seeds: Optional[Sequence[int]] = None) -> dict:
+    """The example's evaluator, det and stoch, at seed 0 (or at each of
+    `seeds`): {"det_apples": .., "det_bombs": .., "det_net": .., ...} or
+    {"det_goal_rate": .., ...} (keys suffixed _s<seed> with `seeds`)."""
+    inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
+    env_name = CHECKPOINTS[name][0]
+    out = {}
+    for seed in ([0] if seeds is None else seeds):
+        suffix = "" if seeds is None else f"_s{seed}"
+        for det in (True, False):
+            mode = "det" if det else "stoch"
+            core = _envs[env_name](device=learner.device)
+            if env_name == "ant_maze":
+                out[f"{mode}_goal_rate{suffix}"] = goal_rate_rnn(
+                    core, inference_fn, params, HIDDEN, episodes, seed=seed,
+                    action_repeat=HAI_ACTION_REPEAT, deterministic=det)
+            else:
+                a, b = gather_eval(core, (params, inference_fn, det), episodes, seed=seed,
+                                   action_repeat=HAI_ACTION_REPEAT, hidden_size=HIDDEN)
+                out.update({f"{mode}_apples{suffix}": a, f"{mode}_bombs{suffix}": b,
+                            f"{mode}_net{suffix}": a - b})
+    return out
+
+
+@torch.no_grad()
+def render(name: str, learner, ts, out: str) -> dict:
+    """The deterministic episode of tools/render_gather_policy.py /
+    render_maze_policy.py (reset key PRNGKey(1), action keys from
+    PRNGKey(2)) saved by `html.save`; -> what it caught or reached."""
+    env_name, _, frames = CHECKPOINTS[name]
+    core = _envs[env_name](device=learner.device)
+    env = wrappers.ActionRepeatWrapper(core, HAI_ACTION_REPEAT)
+    env = wrappers.EpisodeWrapper(env, 1000, 1)
+    env = wrappers.VmapWrapper(env, batch_size=1)
+    inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
+    state = env.reset(jr.split(jr.PRNGKey(1, core.device), 1))
+    key = jr.PRNGKey(2, core.device)
+    h = torch.zeros(1, HIDDEN, device=core.device)
+    qps, caught, best = [], {"apples": 0.0, "bombs": 0.0}, -float("inf")
+    for _ in range(frames):
+        key, k = split2(key)
+        h, act = inference_fn(params, h, state.obs, k, deterministic=True)
+        state = env.step(state, act)
+        qps.append(state.qp)
+        if env_name == "ant_maze":
+            best = max(best, float(state.reward[0]))
+        else:
+            for m in caught:
+                caught[m] += float(state.metrics[m][0])
+    html.save(make_parent(out), core.sys, qps)
+    result = ({"goal_reached": best > 1.0} if env_name == "ant_maze" else caught)
+    print(f"wrote {out} ({frames} frames, {result})", flush=True)
+    return result
+
+
+def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[int]] = None,
+         html_out: Optional[str] = None) -> dict:
+    learner, ts, same = load(name, device)
+    if not same:
+        raise RuntimeError(f"{npz_path(name)}: the loaded parameters do not match their "
+                           "checksum")
+    result = {"npz": npz_path(name), "epochs": ts.epochs, "checksum_ok": same,
+              "episodes": episodes, **evaluate(name, learner, ts, episodes, seeds)}
+    if html_out:
+        result["html"] = render(name, learner, ts, html_out)
+    print(json.dumps(result), flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    which = parser.add_mutually_exclusive_group(required=True)
+    for flag in ("--gather", "--gather-bombmem", "--maze"):
+        which.add_argument(flag, dest="name", action="store_const",
+                           const=flag[2:].replace("-", "_"))
+    parser.add_argument("--device", default=None)
+    parser.add_argument("--episodes", type=int, default=256)
+    parser.add_argument("--seeds", type=int, nargs="+", default=None)
+    parser.add_argument("--html", default=None, help="write the rendered episode here")
+    args = parser.parse_args()
+    main(args.name, args.device, args.episodes, args.seeds, args.html)

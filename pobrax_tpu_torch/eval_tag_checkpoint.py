@@ -25,15 +25,12 @@ import argparse
 import dataclasses
 import json
 import os
-from typing import Callable, Optional, Sequence
-
-import torch
+from typing import Optional, Sequence
 
 from pobrax_tpu_torch import interop
-from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.device import resolve
-from pobrax_tpu_torch.envs import wrappers
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
+from pobrax_tpu_torch.examples.train_ant_tag_rnn import tag_rate_rnn
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import ppo_rnn, sac_rnn
 
@@ -59,33 +56,6 @@ def load(npz: str = DEFAULT_NPZ, device=None, sac: bool = False):
     ts = interop.training_state_from_numpy(tree, learner)
     same = interop.params_checksum(interop.params_to_numpy(ts.params)) == tree["params_sha256"]
     return learner, ts, same
-
-
-@torch.no_grad()
-def tag_rate_rnn(env_core, inference_fn: Callable, params, hidden_size: int,
-                 episodes: int = 256, episode_length: int = 1000, seed: int = 0,
-                 action_repeat: int = 1, deterministic: bool = True) -> float:
-    """True sparse tag rate of a GRU policy: the share of `episodes` parallel
-    episodes that end in a tag (a done with reward > 0.5) before any other
-    end. Stops once every episode has ended; the rate is then final."""
-    env = wrappers.ActionRepeatWrapper(env_core, action_repeat)
-    env = wrappers.EpisodeWrapper(env, episode_length, 1)
-    env = wrappers.VmapWrapper(env, batch_size=episodes)
-    k_reset, key = jr.split(jr.PRNGKey(seed, env.device), 2).unbind(-2)
-    state = env.reset(jr.split(k_reset, episodes))
-    h = torch.zeros(episodes, hidden_size, device=env.device)
-    alive = torch.ones(episodes, device=env.device)
-    tagged = torch.zeros_like(alive)
-    for t in range(episode_length):
-        key, k = jr.split(key, 2).unbind(-2)
-        h, act = inference_fn(params, h, state.obs, k, deterministic=deterministic)
-        state = env.step(state, act)
-        tag = state.done * alive * (state.reward > 0.5)
-        tagged = torch.maximum(tagged, tag)
-        alive = alive * (1.0 - state.done)
-        if t % 10 == 9 and not bool(alive.any()):
-            break
-    return float(tagged.mean())
 
 
 def measurements(sac: bool, seeds: Optional[Sequence[int]] = None):

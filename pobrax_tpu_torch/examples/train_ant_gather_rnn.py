@@ -1,0 +1,267 @@
+"""Recurrent PPO on AntGather; the port of examples/train_ant_gather_rnn.py.
+
+AntGather rewards +1 per apple and -1 per bomb, sensed only through the
+binned egocentric range sensor. `ShapedAntGather` shapes toward the nearest
+LIVE apple (and, with `bomb_coef`, away from the nearest live bomb, capped),
+with the potential's delta masked on any step that caught an object: the
+caught object jumps to the sky waiting area and the nearest apple switches,
+so an unmasked delta would punish the catch. Training-time only; the
+evaluation (`gather_eval`) reports apples and bombs per episode on the TRUE
+env.
+
+`main_curriculum` runs the sensor-range curriculum (the whole arena readable
+first, then the true 6 m), each phase resuming one shared checkpoint, with
+the optional count-based novelty bonus and bomb memory
+(`envs/exploration.GridNoveltyBonusWrapper`) around the shaped env. Its
+knobs are the JAX example's environment variables, GATHER_CURRICULUM
+("14:400,6:800": sensor range in m : cumulative budget in M steps),
+GATHER_DEALIASED, GATHER_NOVELTY (a per-phase list), GATHER_BOMB_MEMORY,
+GATHER_BOMB_COEF, GATHER_SEED, GATHER_GAMMA and GATHER_OUT, read at the
+call (`gather_knobs`), not at import.
+
+Usage: python -m pobrax_tpu_torch.examples.train_ant_gather_rnn [variant] [num_timesteps]
+       [num_envs] [--device cpu] [--out PATH]
+  variant: "mask" (catch mask only) | "bomb" (catch mask + bomb repulsion) |
+  "curriculum" (then [num_envs])
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import shutil
+import sys
+from typing import Optional, Tuple
+
+import torch
+
+from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs
+from pobrax_tpu_torch.envs.base import Env, State, Wrapper
+from pobrax_tpu_torch.envs.exploration import GridNoveltyBonusWrapper
+from pobrax_tpu_torch.examples._common import (run_episodes, run_path, split_options,
+                                               uniform_actions, write_json)
+from pobrax_tpu_torch.training import ppo_rnn
+
+HIDDEN = 128
+
+
+class ShapedAntGather(Wrapper):
+    """TRAINING-TIME shaping: r' = r + coef * (phi' - phi), the delta masked
+    to 0 on any step where `metrics['apples'] + metrics['bombs'] > 0`, with
+    phi = -d_apple + bomb_coef * min(d_bomb, bomb_cap) per env; d_* is the 3D
+    distance to the nearest LIVE object of the kind (caught objects wait in
+    the sky at z = 12; z < 5 marks the live ones)."""
+
+    def __init__(self, env: Env, coef: float = 5.0, bomb_coef: float = 0.0,
+                 bomb_cap: float = 3.0):
+        super().__init__(env)
+        self.coef = coef
+        self.bomb_coef = bomb_coef
+        self.bomb_cap = bomb_cap
+
+    def _phi(self, qp) -> torch.Tensor:
+        u = self.unwrapped
+        torso = qp.pos[:, u.torso_idx]
+        obj = qp.pos[:, u.objects]
+        d = torch.linalg.norm(torso[:, None] - obj, dim=-1)
+        d = torch.where(obj[..., 2] < 5.0, d, torch.full_like(d, 1e6))
+        phi = -d[:, :u.n_apples].min(-1).values
+        if self.bomb_coef:
+            d_bomb = d[:, u.n_apples:].min(-1).values
+            phi = phi + self.bomb_coef * torch.clamp(d_bomb, max=self.bomb_cap)
+        return phi
+
+    def step(self, state: State, action: torch.Tensor) -> State:
+        p0 = self._phi(state.qp)
+        nstate = self.env.step(state, action)
+        delta = self._phi(nstate.qp) - p0
+        caught = (nstate.metrics["apples"] + nstate.metrics["bombs"]) > 0
+        delta = torch.where(caught, torch.zeros_like(delta), delta)
+        return nstate.replace(reward=nstate.reward + self.coef * delta)
+
+
+def gather_eval(env_core: Env, act_fn, episodes: int = 256, episode_length: int = 1000,
+                seed: int = 0, action_repeat: int = 1, hidden_size: int = 0) -> Tuple[float, float]:
+    """Mean apples and bombs caught per episode on the TRUE env. `act_fn` is
+    None (uniform random actions) or (params, inference_fn, deterministic)
+    of a GRU-PPO policy with `hidden_size` units."""
+    dev = env_core.device
+    asz = env_core.action_size
+    apples = torch.zeros(episodes, device=dev)
+    bombs = torch.zeros(episodes, device=dev)
+
+    def observe(state, alive):
+        apples.add_(alive * state.metrics["apples"])
+        bombs.add_(alive * state.metrics["bombs"])
+
+    if act_fn is None:
+        def act(h, obs, k):
+            return h, uniform_actions(k, (episodes, asz))
+    else:
+        params, inference_fn, deterministic = act_fn
+
+        def act(h, obs, k):
+            return inference_fn(params, h, obs, k, deterministic=deterministic)
+
+    run_episodes(env_core, act, torch.zeros(episodes, hidden_size, device=dev), observe,
+                 episodes, episode_length, seed, action_repeat)
+    return float(apples.mean()), float(bombs.mean())
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherKnobs:
+    """The JAX example's environment knobs (`gather_knobs`)."""
+
+    curriculum: Tuple[Tuple[float, int], ...] = ((14.0, 400_000_000), (6.0, 800_000_000))
+    dealiased: bool = False
+    novelty: Tuple[float, ...] = (0.0,)
+    bomb_memory: float = 0.0
+    bomb_coef: float = 0.0
+    seed: int = 0
+    gamma: float = 0.97
+    out: Optional[str] = None
+
+    @property
+    def env_kw(self) -> dict:
+        # the diagnostic de-aliased sensor: bomb bins offset by n_bins
+        return {"bomb_bin_offset": 10} if self.dealiased else {}
+
+    def novelty_beta(self, phase_idx: int) -> float:
+        return self.novelty[min(phase_idx, len(self.novelty) - 1)]
+
+
+def gather_knobs(environ: Optional[dict] = None) -> GatherKnobs:
+    """The knobs from `environ` (the process environment unless given):
+    GATHER_CURRICULUM ("14:400,10:700,6:1200": sensor range in m and
+    cumulative budget in M steps), GATHER_DEALIASED ("1"), GATHER_NOVELTY
+    (a beta, or a comma list of per-phase betas), GATHER_BOMB_MEMORY,
+    GATHER_BOMB_COEF, GATHER_SEED, GATHER_GAMMA, GATHER_OUT."""
+    e = os.environ if environ is None else environ
+    return GatherKnobs(
+        curriculum=tuple((float(p.split(":")[0]), int(p.split(":")[1]) * 1_000_000)
+                         for p in e.get("GATHER_CURRICULUM", "14:400,6:800").split(",")),
+        dealiased=e.get("GATHER_DEALIASED", "0") == "1",
+        novelty=tuple(float(b) for b in e.get("GATHER_NOVELTY", "0.0").split(",")),
+        bomb_memory=float(e.get("GATHER_BOMB_MEMORY", "0.0")),
+        bomb_coef=float(e.get("GATHER_BOMB_COEF", "0.0")),
+        seed=int(e.get("GATHER_SEED", "0")),
+        gamma=float(e.get("GATHER_GAMMA", "0.97")),
+        out=e.get("GATHER_OUT"))
+
+
+def _training_env(core_env: Env, bomb_coef: float, phase_idx: int = 0,
+                  knobs: Optional[GatherKnobs] = None) -> Env:
+    """The shaped env, inside the novelty bonus / bomb memory wrapper when
+    the phase's beta or the bomb memory is positive (half-life 500 core
+    steps: the wrapper sits below ActionRepeat, so about half an episode)."""
+    knobs = knobs or gather_knobs()
+    env = ShapedAntGather(core_env, coef=5.0, bomb_coef=bomb_coef)
+    beta = knobs.novelty_beta(phase_idx)
+    if beta > 0.0 or knobs.bomb_memory > 0.0:
+        env = GridNoveltyBonusWrapper(env, beta=beta, half_extent=10.0, grid=16,
+                                      halflife_steps=500.0, bomb_memory=knobs.bomb_memory)
+    return env
+
+
+def _progress(history):
+    def progress(steps, metrics):
+        history.append({"steps": steps, "mean_reward": metrics.get("mean_reward")})
+        if len(history) % 20 == 0:
+            print(f"  {steps:>12,} steps  mean_reward={history[-1]['mean_reward']:+.4f}",
+                  flush=True)
+    return progress
+
+
+def _evaluate(inference_fn, params, env_kw: dict, device) -> dict:
+    results = {}
+    for det in (True, False):
+        a, b = gather_eval(_envs["ant_gather"](device=device, **env_kw),
+                           (params, inference_fn, det), action_repeat=HAI_ACTION_REPEAT,
+                           hidden_size=HIDDEN)
+        mode = "det" if det else "stoch"
+        results[mode] = {"apples": a, "bombs": b}
+        print(f"GRU ({mode}): apples {a:.2f} bombs {b:.2f} net {a - b:+.2f}", flush=True)
+    return results
+
+
+def curriculum_out(knobs: GatherKnobs) -> str:
+    """The record's default name: the variant and any non-zero seed in it,
+    so that no run overwrites another's."""
+    nov = knobs.novelty
+    return run_path(
+        "learning_gather_rnn_curriculum" + ("_dealiased" if knobs.dealiased else "")
+        + ("_bomb" if knobs.bomb_coef != 0.0 else "")
+        + ("_novelty" if max(nov) > 0.0 else "")
+        + ("_anneal" if max(nov) > 0.0 and len(nov) > 1 and nov[-1] == 0.0 else "")
+        + ("_bombmem" if knobs.bomb_memory > 0.0 else "")
+        + (f"_seed{knobs.seed}" if knobs.seed != 0 else "") + ".json")
+
+
+def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
+                    knobs: Optional[GatherKnobs] = None, device=None,
+                    out: Optional[str] = None) -> dict:
+    """The sensor-range curriculum: phase i trains at its sensor range up to
+    its cumulative budget on `_training_env(..., i)`, resuming the shared
+    checkpoint in `checkpoint_dir` (emptied first; runs/ant_gather_rnn_ckpt
+    unless named); then `gather_eval` det and stoch on the true env.
+    `knobs` default to `gather_knobs()`."""
+    knobs = knobs or gather_knobs()
+    checkpoint_dir = checkpoint_dir or run_path("ant_gather_rnn_ckpt")
+    shutil.rmtree(checkpoint_dir, ignore_errors=True)
+    history = []
+    common = dict(num_envs=num_envs, episode_length=1000, action_repeat=HAI_ACTION_REPEAT,
+                  unroll_length=32, num_minibatches=8, num_update_epochs=4, learning_rate=3e-4,
+                  entropy_cost=3e-3, discounting=0.97, reward_scaling=1.0, hidden_size=HIDDEN,
+                  encoder_sizes=(256,), epochs_per_call=8, autoreset_mode="cached",
+                  seed=knobs.seed, checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=100_000_000, progress_fn=_progress(history))
+    inference_fn = params = None
+    for phase_idx, (srange, total) in enumerate(knobs.curriculum):
+        inference_fn, params, _ = ppo_rnn.train(
+            _training_env(_envs["ant_gather"](sensor_range=srange, device=device,
+                                              **knobs.env_kw),
+                          knobs.bomb_coef, phase_idx, knobs),
+            num_timesteps=total, **common)
+        print(f"curriculum phase done: sensor_range={srange}", flush=True)
+    results = _evaluate(inference_fn, params, knobs.env_kw, device)
+    payload = {"curriculum": [list(p) for p in knobs.curriculum], "num_envs": num_envs,
+               "bomb_coef": knobs.bomb_coef, "seed": knobs.seed,
+               "dealiased_sensor": knobs.dealiased, "novelty_beta": list(knobs.novelty),
+               "bomb_memory": knobs.bomb_memory, "hidden_size": HIDDEN, "results": results,
+               "curve": history[::10]}
+    write_json(out or knobs.out or curriculum_out(knobs), payload)
+    return payload
+
+
+def main(variant: str = "bomb", num_timesteps: int = 400_000_000, num_envs: int = 2048,
+         out: Optional[str] = None, device=None, knobs: Optional[GatherKnobs] = None) -> dict:
+    knobs = knobs or gather_knobs()
+    bomb_coef = 0.3 if variant == "bomb" else 0.0
+    ra, rb = gather_eval(_envs["ant_gather"](device=device), None,
+                         action_repeat=HAI_ACTION_REPEAT)
+    print(f"random: apples {ra:.2f} bombs {rb:.2f} net {ra - rb:+.2f}", flush=True)
+    history = []
+    inference_fn, params, _ = ppo_rnn.train(
+        ShapedAntGather(_envs["ant_gather"](device=device), coef=5.0, bomb_coef=bomb_coef),
+        num_timesteps=num_timesteps, num_envs=num_envs, episode_length=1000,
+        action_repeat=HAI_ACTION_REPEAT, unroll_length=32, num_minibatches=8,
+        num_update_epochs=4, learning_rate=3e-4, entropy_cost=3e-3,
+        discounting=knobs.gamma, reward_scaling=1.0, hidden_size=HIDDEN,
+        encoder_sizes=(256,), epochs_per_call=8, autoreset_mode="cached", seed=0,
+        progress_fn=_progress(history))
+    results = {"random": {"apples": ra, "bombs": rb},
+               **_evaluate(inference_fn, params, {}, device)}
+    payload = {"variant": variant, "bomb_coef": bomb_coef, "gamma": knobs.gamma,
+               "num_timesteps": num_timesteps, "num_envs": num_envs, "hidden_size": HIDDEN,
+               "results": results, "curve": history[::10]}
+    write_json(out or run_path(f"learning_gather_rnn_{variant}.json"), payload)
+    return payload
+
+
+if __name__ == "__main__":
+    args, device, out = split_options(sys.argv[1:])
+    variant = args[0] if args else "bomb"
+    if variant == "curriculum":
+        main_curriculum(*[int(a) for a in args[1:2]], device=device, out=out)
+    else:
+        main(variant, *[int(a) for a in args[1:3]], out=out, device=device)

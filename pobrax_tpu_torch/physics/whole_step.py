@@ -61,8 +61,10 @@ SOURCES = ("whole_step.cuh", "whole_step.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel launches since import (or since a caller last set it to 0)
+# kernel launches since import (or since a caller last set it to 0), and the
+# same launches per (substeps, batch) of the launching System
 launches = 0
+launches_by_shape: dict = {}
 
 _lib: Optional[ctypes.CDLL] = None
 _OUT_WIDTHS = (3, 4, 3, 3, 3, 3, 3, 3, 3, 3)  # qp x4, Info contact/joint/actuator
@@ -236,6 +238,8 @@ def launch(sys, qp: QP, act: torch.Tensor) -> Tuple[QP, Info]:
     if err != 0:
         raise RuntimeError(f"whole-step kernel launch failed with CUDA error {err}")
     launches += 1
+    shape = (sys.config.substeps, B)
+    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return unpack(sys, outs)
 
 

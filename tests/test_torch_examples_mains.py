@@ -1,0 +1,382 @@
+"""The examples' main functions against the JAX examples', on the CPU.
+
+Every `main`, `main_curriculum`, `run_phase` and the carry `main` runs in
+both packages with the learners' `train` and the examples' evaluators
+replaced by recorders. The two call sequences must be equal: each call's
+env stack (wrapper classes and their arguments, the core env's class, its
+radius / sensor / catch arguments, substeps and dt), `num_timesteps` and
+every other keyword, the evaluators' arguments (bound to their signatures,
+defaults applied). The JAX examples read their knobs from the environment
+(some at import: the JAX module is reloaded under the environment and again
+after); the port's read them at the call. A recorded path under a test's
+own directory is compared relative to it. This costs no training.
+
+Then one real `main_curriculum` in the port at 8 envs, one epoch a phase:
+the three phases resume one checkpoint (epochs 1 -> 2 -> 3). And the
+carry script's resume dir, seeded from the GRU-SAC export, restores the
+export's parameters; `visualize` draws the frames JAX's draws (to the
+page's 4 decimals); `rollout_demo`'s two paths run.
+"""
+
+import functools
+import importlib
+import inspect
+import json
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import examples.train_ant_gather_rnn as jgather
+import examples.train_ant_maze_rnn as jmaze
+import examples.train_ant_tag as jtag
+import examples.train_ant_tag_rnn as jtag_rnn
+import examples.train_ant_tag_sac_rnn as jtag_sac
+import examples.train_ant_tag_sac_rnn_carry as jcarry
+import examples.train_heavenhell_rnn as jhh
+import examples.train_heavenhell_sac_rnn as jhh_sac
+import examples.train_masked_ant as jmasked_ant
+import examples.train_masked_pendulum as jpendulum
+import examples.train_ppo as jtrain_ppo
+import examples.train_sac as jtrain_sac
+import examples.train_sac_rnn_pendulum as jsac_pendulum
+import examples.visualize as jvisualize
+import pobrax_tpu.training.ppo as jppo
+import pobrax_tpu.training.ppo_rnn as jrnn
+import pobrax_tpu.training.sac as jsac
+import pobrax_tpu.training.sac_rnn as jsac_rnn
+from pobrax_tpu_torch import eval_tag_checkpoint, interop
+from pobrax_tpu_torch import random as jr
+from pobrax_tpu_torch.examples import (rollout_demo, train_ant_gather_rnn, train_ant_maze_rnn,
+                                       train_ant_tag, train_ant_tag_rnn, train_ant_tag_sac_rnn,
+                                       train_ant_tag_sac_rnn_carry, train_heavenhell_rnn,
+                                       train_heavenhell_sac_rnn, train_masked_ant,
+                                       train_masked_pendulum, train_ppo, train_sac,
+                                       train_sac_rnn_pendulum, visualize)
+from pobrax_tpu_torch.training import checkpoint as ckpt
+from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_EXAMPLES = (jtag, jtag_rnn, jtag_sac, jcarry, jhh, jhh_sac, jgather, jmaze, jmasked_ant,
+                jpendulum, jsac_pendulum, jtrain_ppo, jtrain_sac)
+PORT_EXAMPLES = (train_ant_tag, train_ant_tag_rnn, train_ant_tag_sac_rnn,
+                 train_ant_tag_sac_rnn_carry, train_heavenhell_rnn, train_heavenhell_sac_rnn,
+                 train_ant_gather_rnn, train_ant_maze_rnn, train_masked_ant,
+                 train_masked_pendulum, train_sac_rnn_pendulum, train_ppo, train_sac)
+JAX_LEARNERS = {"ppo": jppo, "ppo_rnn": jrnn, "sac": jsac, "sac_rnn": jsac_rnn}
+PORT_LEARNERS = {"ppo": ppo, "ppo_rnn": ppo_rnn, "sac": sac, "sac_rnn": sac_rnn}
+# what each evaluator's recorder returns
+EVALUATORS = {"tag_rate": 0.25, "tag_rate_rnn": 0.5, "outcome_rates": (0.5, 0.25),
+              "gather_eval": (2.0, 1.0), "goal_rate_rnn": 0.75, "goal_rate_random": 0.0,
+              "eval_policy": {"episode_reward": 1.0, "x_displacement": 0.5},
+              "mean_length": 3.0}
+CORE_ATTRS = ("visible_radius", "tag_radius", "sensor_range", "bomb_bin_offset", "catch_range",
+              "maze_id", "scaling")
+WRAPPER_ATTRS = ("coef", "gamma", "bomb_coef", "bomb_cap", "beta", "half_extent", "grid",
+                 "decay", "bomb_memory")
+
+
+def describe(env):
+    """[(class name, arguments)] from the outermost wrapper to the core env."""
+    chain = []
+    while True:
+        d = vars(env)
+        wrapper = "env" in d
+        attrs = {a: _plain(d[a]) for a in (WRAPPER_ATTRS if wrapper else CORE_ATTRS) if a in d}
+        if "_mask" in d:
+            attrs["mask"] = np.asarray(d["_mask"]).tolist()
+        if not wrapper:
+            attrs.update(substeps=int(env.sys.config.substeps), dt=float(env.sys.config.dt))
+        chain.append((type(env).__name__, attrs))
+        if not wrapper:
+            return chain
+        env = env.env
+
+
+def _plain(x, root=None):
+    if isinstance(x, str):
+        return x.replace(root, "<root>") if root else x
+    if x is None or isinstance(x, (bool, int, float)):
+        return x
+    if isinstance(x, np.generic):
+        return x.item()
+    if isinstance(x, (list, tuple)):
+        return [_plain(v, root) for v in x]
+    if isinstance(x, dict):
+        return {k: _plain(v, root) for k, v in x.items()}
+    if hasattr(x, "unwrapped"):
+        return describe(x)
+    if type(x).__name__ == "Mesh":
+        return "<mesh>"
+    return "<fn>" if callable(x) else "<obj>"
+
+
+class _Record:
+    """Replaces every learner's `train` and every example's evaluators in one
+    package with recorders that log into `self.calls`."""
+
+    def __init__(self, monkeypatch, learners, examples, root, jax_side):
+        self.calls, self.root = [], root
+        for name, module in learners.items():
+            monkeypatch.setattr(module, "train", self._train(f"{name}.train", jax_side))
+        self.patch_examples(monkeypatch, examples)
+
+    def patch_examples(self, monkeypatch, examples):
+        for module in examples:
+            for name, value in EVALUATORS.items():
+                if hasattr(module, name):
+                    monkeypatch.setattr(module, name,
+                                        self._evaluator(name, getattr(module, name), value))
+
+    def _train(self, name, jax_side):
+        def train(env, **kwargs):
+            self.calls.append((name, {"env": describe(env),
+                                      **{k: _plain(v, self.root) for k, v in kwargs.items()}}))
+            asz = env.action_size
+            if jax_side:
+                def inference_fn(params, obs, key, deterministic=False):
+                    return jnp.zeros(obs.shape[:-1] + (asz,))
+            else:
+                def inference_fn(params, obs, key, deterministic=False):
+                    return torch.zeros(obs.shape[:-1] + (asz,), device=obs.device)
+            return inference_fn, "PARAMS", []
+        return train
+
+    def _evaluator(self, name, fn, value):
+        sig = inspect.signature(fn)
+
+        def evaluator(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            self.calls.append((name, {k: _plain(v, self.root)
+                                      for k, v in bound.arguments.items()}))
+            return value
+        return evaluator
+
+
+@pytest.fixture
+def both(monkeypatch, tmp_path):
+    """(JAX recorder, port recorder, JAX root, port root); JAX runs in its
+    root, where its docs/ is."""
+    jroot, proot = tmp_path / "jax", tmp_path / "port"
+    (jroot / "docs").mkdir(parents=True)
+    proot.mkdir()
+    monkeypatch.chdir(jroot)
+    jrec = _Record(monkeypatch, JAX_LEARNERS, JAX_EXAMPLES, str(jroot), True)
+    prec = _Record(monkeypatch, PORT_LEARNERS, PORT_EXAMPLES, str(proot), False)
+    return jrec, prec, jroot, proot
+
+
+def _reloaded(monkeypatch, module, request, **environ):
+    """`module` re-imported under `environ` (its knobs are read at import),
+    and re-imported again once the test has restored the environment."""
+    for k, v in environ.items():
+        monkeypatch.setenv(k, v)
+    request.addfinalizer(lambda: importlib.reload(module))
+    return importlib.reload(module)
+
+
+def _same(jrec, prec, n_train):
+    assert jrec.calls == prec.calls
+    assert sum(name.endswith(".train") for name, _ in jrec.calls) == n_train
+
+
+@pytest.mark.parametrize("case", ["train_ant_tag", "train_ant_tag_rnn", "curriculum"])
+def test_ant_tag_mains(both, monkeypatch, case):
+    jrec, prec, jroot, proot = both
+    if case == "train_ant_tag":
+        jtag.main(10_000, 16)
+        train_ant_tag.main(10_000, 16, device="cpu", out=str(proot / "a.json"))
+        _same(jrec, prec, 1)
+    elif case == "train_ant_tag_rnn":
+        jtag_rnn.main(10_000, 16)
+        train_ant_tag_rnn.main(10_000, 16, device="cpu", out=str(proot / "a.json"))
+        _same(jrec, prec, 1)
+    else:
+        monkeypatch.setenv("TAG_SEED", "3")
+        monkeypatch.setenv("TAG_OUT", str(jroot / "tag.json"))
+        jtag_rnn.main_curriculum(16, str(jroot / "ckpt"))
+        monkeypatch.setenv("TAG_OUT", str(proot / "tag.json"))
+        train_ant_tag_rnn.main_curriculum(16, str(proot / "ckpt"), device="cpu")
+        _same(jrec, prec, 3)
+        with open(proot / "tag.json") as f:
+            got = json.load(f)
+        with open(jroot / "tag.json") as f:
+            assert got == json.load(f)
+
+
+@pytest.mark.parametrize("phase", [0, 3])
+def test_ant_tag_sac_rnn_run_phase(both, phase):
+    jrec, prec, jroot, proot = both
+    jtag_sac.run_phase(phase, 16, str(jroot / "ckpt"))
+    train_ant_tag_sac_rnn.run_phase(phase, 16, str(proot / "ckpt"), device="cpu",
+                                    out=str(proot / "p.json"))
+    _same(jrec, prec, 1)
+    assert len(jrec.calls) == 5  # 4 tag rates
+
+
+def test_ant_tag_sac_rnn_carry(both, monkeypatch):
+    jrec, prec, jroot, proot = both
+    monkeypatch.setattr(jcarry, "PHASE0", os.path.join(ROOT, jcarry.PHASE0))
+    jcarry.main(0.3, 2, 16, str(jroot / "ckpt"))
+    train_ant_tag_sac_rnn_carry.main(0.3, 2, 16, str(proot / "ckpt"), device="cpu",
+                                     out=str(proot / "c.json"))
+    _same(jrec, prec, 1)
+    # the seeded resume dir restores the committed phase-0 parameters
+    step = proot / "ckpt" / train_ant_tag_sac_rnn_carry.PHASE0_STEP
+    learner, want, _ = eval_tag_checkpoint.load(eval_tag_checkpoint.SAC_NPZ, "cpu", sac=True)
+    got = ckpt.restore(str(step), learner.init(jr.PRNGKey(1)))
+    assert got.epochs == want.epochs > 0
+    assert (interop.params_checksum(interop.params_to_numpy(got.params))
+            == ckpt.load_npz(eval_tag_checkpoint.SAC_NPZ)["params_sha256"])
+
+
+@pytest.mark.parametrize("substeps", [10, 8])
+def test_heavenhell_mains(both, monkeypatch, substeps):
+    jrec, prec, jroot, proot = both
+    monkeypatch.setattr(jhh, "SUBSTEPS", substeps)
+    monkeypatch.setenv("HH_SUBSTEPS", str(substeps))
+    jhh.main(10_000, 16)
+    train_heavenhell_rnn.main(10_000, 16, device="cpu", out=str(proot / "h.json"))
+    _same(jrec, prec, 1)
+    assert len(jrec.calls) == (4 if substeps == 10 else 5)
+    if substeps == 10:
+        jhh_sac.main(10_000, 16)
+        train_heavenhell_sac_rnn.main(10_000, 16, device="cpu", out=str(proot / "s.json"))
+        _same(jrec, prec, 2)
+
+
+@pytest.mark.parametrize("recipe", ["default", "bombmem02", "dealiased"])
+def test_gather_main_curriculum(both, monkeypatch, request, recipe):
+    jrec, prec, jroot, proot = both
+    environ = {"default": {},
+               "bombmem02": {"GATHER_CURRICULUM": "14:400,6:800,6:1000",
+                             "GATHER_NOVELTY": "0.25,0.25,0", "GATHER_BOMB_MEMORY": "0.2",
+                             "GATHER_SEED": "1"},
+               "dealiased": {"GATHER_DEALIASED": "1", "GATHER_BOMB_COEF": "0.3",
+                             "GATHER_NOVELTY": "0.1"}}[recipe]
+    module = _reloaded(monkeypatch, jgather, request, **environ)
+    jrec.patch_examples(monkeypatch, [module])  # the reload redefined its evaluator
+    monkeypatch.setenv("GATHER_OUT", str(jroot / "g.json"))
+    module.main_curriculum(16, str(jroot / "ckpt"))
+    knobs = train_ant_gather_rnn.gather_knobs({**environ, "GATHER_OUT": str(proot / "g.json")})
+    train_ant_gather_rnn.main_curriculum(16, str(proot / "ckpt"), knobs=knobs, device="cpu")
+    _same(jrec, prec, len(knobs.curriculum))
+    with open(proot / "g.json") as f:
+        got = json.load(f)
+    with open(jroot / "g.json") as f:
+        assert got == json.load(f)
+    assert os.path.basename(train_ant_gather_rnn.curriculum_out(knobs)) == {
+        "default": "learning_gather_rnn_curriculum.json",
+        "bombmem02": "learning_gather_rnn_curriculum_novelty_anneal_bombmem_seed1.json",
+        "dealiased": "learning_gather_rnn_curriculum_dealiased_bomb_novelty.json"}[recipe]
+
+
+@pytest.mark.parametrize("variant", ["bomb", "mask"])
+def test_gather_main(both, monkeypatch, variant):
+    jrec, prec, jroot, proot = both
+    monkeypatch.setenv("GATHER_GAMMA", "0.99")
+    jgather.main(variant, 10_000, 16)
+    train_ant_gather_rnn.main(variant, 10_000, 16, out=str(proot / "g.json"), device="cpu")
+    _same(jrec, prec, 1)
+
+
+def test_maze_main(both, monkeypatch):
+    jrec, prec, jroot, proot = both
+    monkeypatch.setenv("MAZE_SEED", "2")
+    monkeypatch.setenv("MAZE_OUT", str(jroot / "m.json"))
+    jmaze.main(10_000, 16, str(jroot / "ckpt"))
+    monkeypatch.setenv("MAZE_OUT", str(proot / "m.json"))
+    train_ant_maze_rnn.main(10_000, 16, str(proot / "ckpt"), device="cpu")
+    _same(jrec, prec, 1)
+    with open(proot / "m.json") as f:
+        got = json.load(f)
+    with open(jroot / "m.json") as f:
+        assert got == json.load(f)
+
+
+def test_masked_mains(both):
+    jrec, prec, jroot, proot = both
+    jmasked_ant.main(10_000, 16)
+    train_masked_ant.main(10_000, 16, device="cpu", out=str(proot / "a.json"))
+    _same(jrec, prec, 3)
+    jpendulum.main(10_000)
+    train_masked_pendulum.main(10_000, device="cpu", out=str(proot / "p.json"))
+    _same(jrec, prec, 6)
+    for path in (jroot / "docs" / "learning_masked_pendulum.json", proot / "p.json"):
+        with open(path) as f:
+            assert json.load(f)["gru_masked"] == EVALUATORS["mean_length"]
+    jsac_pendulum.main(10_000)
+    train_sac_rnn_pendulum.main(10_000, device="cpu", out=str(proot / "p.json"))
+    _same(jrec, prec, 7)
+    with open(proot / "p.json") as f:
+        got = json.load(f)
+    with open(jroot / "docs" / "learning_masked_pendulum.json") as f:
+        assert got == json.load(f)
+
+
+def test_train_ppo_and_train_sac(both):
+    jrec, prec, jroot, proot = both
+    jtrain_ppo.main("fast", 10_000)
+    out = train_ppo.main("fast", 10_000, device="cpu", out=str(proot / "fast_eval.html"))
+    jtrain_sac.main("fast", 10_000)
+    train_sac.main("fast", 10_000, device="cpu")
+    _same(jrec, prec, 2)
+    pages = [open(p).read() for p in (jroot / "fast_eval.html", out)]
+    frames = [re.search(r"const FRAMES\s*=\s*(.*?);\n", p, re.DOTALL).group(1) for p in pages]
+    assert frames[0] == frames[1]  # the zero policy's 301 frames of `fast`
+
+
+def test_main_curriculum_resumes_across_phases(monkeypatch, tmp_path):
+    """A real curriculum in the port: 8 envs, one epoch a phase; the
+    evaluations at 4 episodes of 5 steps."""
+    monkeypatch.setattr(train_ant_tag_rnn, "tag_rate_rnn",
+                        functools.partial(train_ant_tag_rnn.tag_rate_rnn, episodes=4,
+                                          episode_length=5))
+    saves = []
+    save_step = ckpt.save_step
+
+    def spy(root, step, ts, mesh=None):
+        saves.append((step, ts.epochs))
+        return save_step(root, step, ts, mesh)
+
+    monkeypatch.setattr(ckpt, "save_step", spy)
+    per_epoch = 32 * 8 * 6
+    curriculum = tuple((r, (i + 1) * per_epoch) for i, r in enumerate((20.0, 6.0, 4.0)))
+    det = train_ant_tag_rnn.main_curriculum(8, str(tmp_path / "ckpt"), curriculum, seed=0,
+                                            device="cpu", out=str(tmp_path / "t.json"))
+    assert saves == [(per_epoch, 1), (2 * per_epoch, 2), (3 * per_epoch, 3)]
+    assert sorted(os.listdir(tmp_path / "ckpt")) == [f"step_{s:012d}" for s, _ in saves]
+    with open(tmp_path / "t.json") as f:
+        record = json.load(f)
+    assert record["true_tag_rate_det"] == det and 0 <= det <= 1
+    assert record["curriculum"] == [list(p) for p in curriculum]
+
+
+def test_visualize_draws_jax_frames(tmp_path):
+    steps = 3
+    jvisualize.main("ant_tag", steps, str(tmp_path / "j.html"))
+    visualize.main("ant_tag", steps, str(tmp_path / "p" / "t.html"), device="cpu")
+    frames = []
+    for path in (tmp_path / "j.html", tmp_path / "p" / "t.html"):
+        with open(path) as f:
+            frames.append(json.loads(re.search(r"const FRAMES\s*=\s*(.*?);\n", f.read(),
+                                               re.DOTALL).group(1)))
+    assert len(frames[0]) == len(frames[1]) == steps
+    for key in ("pos", "rot"):
+        np.testing.assert_allclose(np.array([f[key] for f in frames[1]]),
+                                   np.array([f[key] for f in frames[0]]), rtol=0, atol=2e-4)
+
+
+def test_rollout_demo_paths():
+    stats = rollout_demo.gym_path("ant_tag", 4, 3, device="cpu")
+    # no episode completes in 3 steps: the stats are the empty queues' NaN
+    assert set(stats) == {"charts/mean_episodic_return", "charts/mean_discounted_episodic_return",
+                          "charts/mean_episodic_length"}
+    out = rollout_demo.native_path("ant_tag", 4, 3, device="cpu")
+    assert out["env_steps_per_s"] > 0 and np.isfinite(out["mean_reward"])

@@ -38,7 +38,14 @@ missing = ({{"pobrax_tpu_torch.envs." + m for m in
            | {{"pobrax_tpu_torch.training." + m for m in
               ("ppo", "ppo_rnn", "distribution", "running_statistics", "optimizer",
                "checkpoint", "replay", "sac", "sac_rnn")}}
-           | {{"pobrax_tpu_torch.models.networks", "pobrax_tpu_torch.eval_tag_checkpoint"}}) \
+           | {{"pobrax_tpu_torch.models.networks", "pobrax_tpu_torch.eval_tag_checkpoint",
+               "pobrax_tpu_torch.eval_checkpoint"}}
+           | {{"pobrax_tpu_torch.examples." + m for m in
+              ("train_ant_tag", "train_ant_tag_rnn", "train_ant_tag_sac_rnn",
+               "train_ant_tag_sac_rnn_carry", "train_heavenhell_rnn", "train_heavenhell_sac_rnn",
+               "train_ant_gather_rnn", "train_ant_maze_rnn", "train_masked_ant",
+               "train_masked_pendulum", "train_sac_rnn_pendulum", "train_ppo", "train_sac",
+               "rollout_demo", "visualize")}}) \
     - set(names)
 assert not missing, missing
 """
@@ -70,7 +77,8 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
     with pytest.raises(RuntimeError):
         System(extend_ant_cfg())
     # the learners and the checkpoint replay resolve the card the same way
-    from pobrax_tpu_torch import eval_tag_checkpoint, graft_entry
+    from pobrax_tpu_torch import eval_checkpoint, eval_tag_checkpoint, graft_entry
+    from pobrax_tpu_torch.examples import train_ant_tag_rnn, visualize
     from pobrax_tpu_torch.parallel import mesh
     from pobrax_tpu_torch.envs.fast import Fast
     from pobrax_tpu_torch.models import networks
@@ -91,6 +99,9 @@ def test_entry_points_without_device_raise_on_cpu_only_torch(monkeypatch):
                  lambda: running_statistics.init_state(3),
                  lambda: eval_tag_checkpoint.load(),
                  lambda: graft_entry.entry(),
+                 lambda: eval_checkpoint.load("maze"),
+                 lambda: train_ant_tag_rnn.main(1, 8),
+                 lambda: visualize.main("ant_tag", 1),
                  lambda: mesh.make_mesh()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -36,10 +36,11 @@ def _batch(env, B, steps, dev):
 def test_cpu_tensors_run_the_plain_step():
     env = AntTagEnv(device="cpu")
     qp, act = _batch(env, 4, 2, torch.device("cpu"))
-    before = whole_step.launches
+    before, by_shape = whole_step.launches, dict(whole_step.launches_by_shape)
     q1, i1 = whole_step.whole_step(env.sys, qp, act)
     q2, i2 = env.sys.step_generic(qp, act)
     assert whole_step.launches == before
+    assert whole_step.launches_by_shape == by_shape
     torch.testing.assert_close(q1.pos, q2.pos, rtol=0, atol=0)
     torch.testing.assert_close(i1.contact.vel, i2.contact.vel, rtol=0, atol=0)
 
@@ -99,10 +100,13 @@ def test_kernel_matches_plain_on_card(cuda):
     B = 512
     qp, act = _batch(env, B, 30, cuda)
     before = whole_step.launches
+    shape = (env.sys.config.substeps, B)
+    shape_before = whole_step.launches_by_shape.get(shape, 0)
     qk, ik = whole_step.launch(env.sys, qp, act)
     qg, ig = env.sys.step_generic(qp, act)
     torch.cuda.synchronize()
     assert whole_step.launches == before + 1
+    assert whole_step.launches_by_shape[shape] == shape_before + 1
     err = lambda a, b: (a - b).abs().flatten(1).max(1).values
     agree = ((err(qk.pos, qg.pos) <= 1e-5) & (err(qk.rot, qg.rot) <= 1e-5)
              & (err(qk.vel, qg.vel) <= 1e-3) & (err(qk.ang, qg.ang) <= 1e-3))
