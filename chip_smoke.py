@@ -8,9 +8,10 @@ cached on-device randomised autoreset, every control step one launch of the
 hand-written whole-step CUDA kernel (a half-warp per env); the four learners;
 PPO on halfcheetah at examples/train_ppo.py's recipe with its HTML
 evaluation page; the multi-process half, two ranks of a 'data' mesh
-sharing the card over gloo training AntTag with PPO and GRU-SAC; and the
-examples at their recipes' widths, the AntTag solve's curriculum first — and
-checks them. Imports no jax and nothing of
+sharing the card over gloo training AntTag with PPO and GRU-SAC; the
+examples at their recipes' widths, the AntTag solve's curriculum first; and
+the benches and measuring tools through their entry points — and checks
+them. Imports no jax and nothing of
 `pobrax_tpu`; the fixtures are read with numpy. Phases:
   1. card: name and power limit (nvidia-smi) and torch's device name;
   2. build: compile csrc/whole_step.cu with nvcc, print seconds and ptxas
@@ -66,7 +67,7 @@ checks them. Imports no jax and nothing of
      (launches queued behind a sleep kernel, so they run back to back: the
      two differ where the wrapper's host work per launch outlasts the
      kernel, on the small Systems), and the bound; the timing helpers are
-     time_kernel.py's.
+     `pobrax_tpu_torch.utils.profiling`'s (time_kernel.py's too).
   7. GRU-PPO trains AntTag at full width: `ppo_rnn.train` on
      `AntTagEnv` with examples/train_ant_tag_rnn.py's recipe
      (`ppo_rnn.ANT_TAG`: 2048 envs, episode 1000, action_repeat 6, unroll
@@ -189,6 +190,27 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      launch at a pair that no entry compares fails. Each of (a)-(h) prints
      its wall time, its trained env-steps as JAX counts them and its
      launches, and a `[clock]` line.
+ 19. the benches and measuring tools (`pobrax_tpu_torch.bench`,
+     `bench_scaling` and `tools/`), each through its entry point, alone on
+     the card after the examples' processes have ended: first the kernel
+     against the plain step on each (System, batch) they add (the ablations'
+     AntTag without walls, without contacts and at one substep, AntTag at 8
+     substeps, the substeps probe's reference and its 8-substep candidate at
+     64 envs under ActionRepeat(6) (its candidates at 5 substeps are past the
+     integrator's stability edge, where no two float32 steps agree after one
+     launch), HeavenHell at 64, AntTag x6 at the speed probe's 8,
+     Gather and Maze x6 at the renders' one env, AntTag at 512, 256 and
+     2048), then `bench.main` (cached, 200 steps, with BENCH_TRAIN=1; naive,
+     10), `tools.bench_train` for PPO, GRU-PPO and GRU-SAC (one call each),
+     `bench_scaling` at 1 and 2 ranks (gloo, sharing the card) for `step`
+     and `ppo`, `bench_substeps` (10, 8), `ablate_bench`, `roofline`,
+     `overlap_study`, `autoreset_study` and `substeps_probe` at 64 envs,
+     `ant_speed_probe`, `per_study` at one rung and one seed, and both
+     renders; each prints its JSON record (the card's name and power limit
+     in it), every rate must be finite, and every launch is counted under
+     the entry of its (System, batch): by (substeps, batch), or where two
+     Systems share those (the ablations, the probe's candidates) by the
+     tool's own count of each.
 A `[clock]` line after each phase gives its seconds and the seconds since
 the start. Then one JSON line with an entry per System (halfcheetah one per
 batch; each with its resident warps per SM), the card's name and power
@@ -213,7 +235,7 @@ import time
 import numpy as np
 import torch
 
-from pobrax_tpu_torch import eval_checkpoint, eval_tag_checkpoint, graft_entry
+from pobrax_tpu_torch import bench, bench_scaling, eval_checkpoint, eval_tag_checkpoint, graft_entry
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, Wrapper, _envs, create, wrappers
 from pobrax_tpu_torch.envs.ant import Ant
@@ -230,9 +252,12 @@ from pobrax_tpu_torch.physics import step_tables, whole_step
 from pobrax_tpu_torch.parallel import mesh as pmesh
 from pobrax_tpu_torch.physics.ant import ANT_BODY_NAMES
 from pobrax_tpu_torch.profile_step import _trace
+from pobrax_tpu_torch.tools import (ablate_bench, ant_speed_probe, autoreset_study, bench_substeps,
+                                    bench_train, overlap_study, per_study, render_gather_policy,
+                                    render_maze_policy, roofline, substeps_probe)
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
-from time_kernel import card_line, cuda_ms, device_ms
+from pobrax_tpu_torch.utils.profiling import card_line, cuda_ms, device_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = [os.path.join(ROOT, "tests", "fixtures", name)
@@ -1788,6 +1813,214 @@ def phase_examples_parallel(tmp: str) -> dict:
     return launches
 
 
+# phase 19: the benches and the measuring tools, each through its entry
+# point, alone on the card. Depth cut to hold the phase near 150 s (every
+# path, comparison and count runs): bench.py's naive mode 200 -> 10 steps,
+# the training benches one timed call (3), the scaling sweep 4 steps and one
+# timed call, bench_substeps 25 steps (200), ablate_bench 1 step (200),
+# roofline 50 steps (200), overlap_study 500 launches / 300 matmul steps
+# (10000 / 3000), autoreset_study and substeps_probe at 64 envs (the probe 25
+# steps a candidate, 1000, two candidates of four), per_study one rung of 9
+# epochs (the last with gradient steps) and one seed
+TOOLS_BENCH = {"BENCH_STEPS": "200", "BENCH_SINGLE_MODE": "1", "BENCH_AUTORESET": "cached",
+               "BENCH_TRAIN": "1", "TRAIN_EPC": "1", "TRAIN_REPEATS": "1"}
+TOOLS_BENCH_NAIVE = {"BENCH_STEPS": "10", "BENCH_SINGLE_MODE": "1", "BENCH_AUTORESET": "naive"}
+TOOLS_TRAIN_REPEATS = "1"
+TOOLS_SCALING = {"BENCH_SIZES": "1,2", "BENCH_PROGRAMS": "step,ppo", "BENCH_STEPS": "4",
+                 "BENCH_REPEATS": "1"}
+TOOLS_SUBSTEPS_STEPS, TOOLS_ABLATE_STEPS, TOOLS_ROOF_STEPS = 25, 1, 50
+TOOLS_OVERLAP = ("500", "300")
+STUDY_ENVS, STUDY_STEPS, STUDY_EPISODE = 64, 100, 20
+# the substeps probe runs the reference and the retune the JAX package kept
+# (8); its other candidates, 5 substeps at three stiffness scales, are past
+# the integrator's stability edge, where one control step amplifies
+# round-off beyond any tolerance: the kernel's own host build and the plain
+# step part in most envs there (tests/test_torch_tools.py), so no launch of
+# them can be held against the plain step
+PROBE_CANDIDATES, PROBE_STEPS = ((10, 1.0), (8, 1.0)), 25
+PER_BUDGET = 9 * 4 * 16 * 64  # nine GRU-SAC epochs of per_study.COMMON's 64 envs
+SPEED_EPISODES = 8  # tools/ant_speed_probe.py's
+TOOLS_SUBSTEPS = 8  # bench_substeps' candidate
+# the (System, batch) pairs the tools add: (entry, how its core env is made,
+# batch, action_repeat, wall (axis, value) or None). Past h_sub =
+# STABLE_H_SUB (tools/substeps_probe.py's stability edge; the ablation's one
+# substep) the spring joints blow up within a few steps of random actions,
+# so such a System is compared one step from a reset
+STABLE_H_SUB = 0.00625
+TOOL_CORES = (
+    ("ant_tag,no_walls", lambda dev: ablate_bench.variant_envs(dev)["no_walls"], B, 1, None),
+    ("ant_tag,no_contacts", lambda dev: ablate_bench.variant_envs(dev)["no_contacts"], B, 1,
+     None),
+    ("ant_tag,substeps=1", lambda dev: ablate_bench.variant_envs(dev)["substeps_1"], B, 1,
+     (0, WALL_TORSO_X)),
+    (f"ant_tag,substeps={TOOLS_SUBSTEPS}",
+     lambda dev: substeps_probe.retuned_env("ant_tag", TOOLS_SUBSTEPS, 1.0, dev), B, 1,
+     (0, WALL_TORSO_X)),
+    *((f"ant_tag,substeps={ss},stiffness={sc:g},action_repeat=6,B={STUDY_ENVS}"
+       if (ss, sc) != (10, 1.0) else f"{LEARNER},B={STUDY_ENVS}",
+       (lambda ss, sc: lambda dev: substeps_probe.retuned_env("ant_tag", ss, sc, dev))(ss, sc),
+       STUDY_ENVS, ACTION_REPEAT, (0, WALL_TORSO_X))
+      for ss, sc in PROBE_CANDIDATES),
+    (f"ant_heavenhell,B={STUDY_ENVS}", lambda dev: _envs["ant_heavenhell"](device=dev),
+     STUDY_ENVS, 1, PO_WALLS["ant_heavenhell"]),
+    (f"{LEARNER},B={SPEED_EPISODES}", lambda dev: ant_speed_probe.env_for(ant_speed_probe.CKPT,
+                                                                          dev),
+     SPEED_EPISODES, ACTION_REPEAT, (0, WALL_TORSO_X)),
+    ("ant_gather,action_repeat=6,B=1", lambda dev: _envs["ant_gather"](device=dev), 1,
+     ACTION_REPEAT, None),
+    ("ant_maze,action_repeat=6,B=1", lambda dev: _envs["ant_maze"](device=dev), 1, ACTION_REPEAT,
+     PO_WALLS["ant_maze"]),
+)
+# bench_scaling's per-rank batches (strong: 512 in all, one and two ranks)
+# and bench_train's GRU-PPO, at AntTag's own 10 substeps
+TOOL_ANT_TAG_BATCHES = (512, 256, 2048)
+
+
+def core_kernel_vs_plain(dev, tag: str, core, batch: int, action_repeat: int = 1, wall=None):
+    """Kernel against plain on the System of a core env (under ActionRepeat
+    when `action_repeat` > 1) at `batch` envs, from a reset plus a few plain
+    steps (none past the integrator's stability edge, a substep longer than
+    STABLE_H_SUB: random actions blow it up within a few steps); with `wall`
+    = (axis, value) a sixteenth of the ants (at least one) pushed against a
+    wall, whose capsule-box rows must be live."""
+    if action_repeat > 1:
+        wrappers.ActionRepeatWrapper(core, action_repeat)
+    sys_ = core.sys
+    qp = core.reset(jr.split(jr.PRNGKey(6, dev), batch)).qp
+    g = torch.Generator(device=dev).manual_seed(6)
+    stable = sys_.config.dt / sys_.config.substeps <= STABLE_H_SUB
+    warm = 0 if not stable else 20 if action_repeat == 1 else 3
+    qp = plain_steps(sys_, qp, warm, g)
+    if wall is not None:
+        qp = push_ants(core, qp, *wall, count=max(1, batch * WALL_ENVS // B))
+    live = live_rows(sys_, qp)
+    act = torch.rand(batch, sys_.action_size, generator=g, device=dev) * 2 - 1
+    max_err = compare(tag, sys_, qp, act, f"; {sys_.config.substeps} substeps; envs with a live "
+                      "row: " + (", ".join(f"{k} {v}" for k, v in live.items()) or "none"))
+    if wall is not None and live.get("capsule_box", 0) == 0:
+        fail(f"{tag}: no env touched a wall: the capsule-box rows went unchecked")
+    return sys_, qp, act, max_err
+
+
+def phase_tools_kernel_vs_plain(dev) -> dict:
+    """The kernel against the plain step on each (System, batch) the benches
+    and tools add: -> {entry: (sys, qp, act, max |err|)}."""
+    out = {}
+    for tag, make, batch, repeat, wall in TOOL_CORES:
+        out[tag] = core_kernel_vs_plain(dev, tag, make(dev), batch, repeat, wall)
+    for batch in TOOL_ANT_TAG_BATCHES:
+        out[f"ant_tag,B={batch}"] = phase_stock_kernel_vs_plain(dev, "ant_tag", batch)
+    return out
+
+
+def _finite_rates(tag: str, rates) -> None:
+    if not rates or not all(np.isfinite(r) and r > 0 for r in rates):
+        fail(f"{tag}: a rate that is not finite and positive: {rates}")
+
+
+def phase_tools(dev, card: str, tmp: str, lap) -> dict:
+    """Phase 19: each bench and tool through its entry point (module
+    docstring); every launch counted under the entry of its (System,
+    batch). -> the whole-step launches of each entry."""
+    launches = {}
+    x6, ev = 10 * ACTION_REPEAT, EVAL_EPISODES
+    sub_p = _envs["inverted_pendulum"](device=dev).sys.config.substeps
+
+    def add(entry: str, n: int) -> None:
+        launches[entry] = launches.get(entry, 0) + n
+
+    def run(label: str, call, entries=None):
+        """call() with the launches it makes counted under `entries`
+        ({(substeps, batch): entry}; None: the caller attributes them)."""
+        torch.cuda.synchronize()
+        _take_shapes()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        shapes = _take_shapes()
+        if entries is not None:
+            stray = sorted(set(shapes) - set(entries))
+            if stray:
+                fail(f"{label}: launches at (substeps, batch) {stray}, which no entry compares")
+            for shape, n in shapes.items():
+                add(entries[shape], n)
+        print(f"[tools:{label}] {time.perf_counter() - t0:.1f} s, whole-step launches "
+              f"{sum(shapes.values())} ({', '.join(f'{k}: {n}' for k, n in sorted(shapes.items()))}"
+              f"); {card}", flush=True)
+        lap(f"tools:{label}")
+        return out
+
+    tag = {(10, B): "ant_tag"}
+    rec = run("bench cached + train", lambda: bench.main(TOOLS_BENCH, dev), tag)
+    _finite_rates("bench", [rec["value"], rec["train"]["value"], *rec["modes"]["cached"]["runs"]])
+    rec = run("bench naive", lambda: bench.main(TOOLS_BENCH_NAIVE, dev), tag)
+    _finite_rates("bench naive", rec["modes"]["naive"]["runs"])
+    for program, entries in ((None, tag), ("rnn", {(10, 2048): "ant_tag,B=2048"}),
+                             ("sac_rnn", {(x6, 512): "ant_heavenhell,action_repeat=6,B=512"})):
+        env_vars = {"TRAIN_REPEATS": TOOLS_TRAIN_REPEATS,
+                    **({"TRAIN_PROGRAM": program} if program else {})}
+        rec = run(f"bench_train {program or 'ppo'}",
+                  lambda: bench_train.main([], env_vars, dev), entries)
+        _finite_rates(f"bench_train {program}", [rec["value"], *rec["runs"]])
+    rec = run("bench_scaling", lambda: bench_scaling.main(TOOLS_SCALING, dev))
+    for shape, n in rec["launches_by_shape"].items():
+        entry = {(10, 512): "ant_tag,B=512", (10, 256): "ant_tag,B=256"}.get(tuple(shape))
+        if entry is None:
+            fail(f"bench_scaling: launches at {shape}, which no entry compares")
+        add(entry, n)
+    _finite_rates("bench_scaling", [r for prog in rec["rates"].values() for r in prog.values()])
+    rec = run("bench_substeps", lambda: bench_substeps.main(
+        ["ant_tag", str(B), str(TOOLS_SUBSTEPS_STEPS)], {"SUBSTEPS_LIST": f"10,{TOOLS_SUBSTEPS}"},
+        dev), {**tag, (TOOLS_SUBSTEPS, B): f"ant_tag,substeps={TOOLS_SUBSTEPS}"})
+    _finite_rates("bench_substeps", list(rec.values()))
+    rec = run("ablate_bench", lambda: ablate_bench.main(dev, steps=TOOLS_ABLATE_STEPS))
+    for variant, entry in (("full", "ant_tag"), ("physics_only", "ant_tag"),
+                           ("no_walls", "ant_tag,no_walls"),
+                           ("no_contacts", "ant_tag,no_contacts"),
+                           ("substeps_1", "ant_tag,substeps=1")):
+        if rec["launches"][variant] != 4 * TOOLS_ABLATE_STEPS:
+            fail(f"ablate_bench {variant}: {rec['launches'][variant]} launches, not "
+                 f"{4 * TOOLS_ABLATE_STEPS}")
+        add(entry, rec["launches"][variant])
+    _finite_rates("ablate_bench", [*rec["rates"].values(), *rec["kernel_device_ms"].values()])
+    rec = run("roofline", lambda: roofline.main({"ROOF_STEPS": str(TOOLS_ROOF_STEPS)}, dev), tag)
+    _finite_rates("roofline", [rec["env_steps_per_s"], rec["x_above_roofline"]])
+    rec = run("overlap_study", lambda: overlap_study.main(list(TOOLS_OVERLAP), dev), tag)
+    _finite_rates("overlap_study", [rec["chain_ms"], rec["mm_ms"], rec["both_ms"]])
+    rec = run("autoreset_study", lambda: [autoreset_study.run_mode(
+        mode, STUDY_EPISODE, STUDY_STEPS, STUDY_ENVS, device=dev) for mode in ("naive", "cached")],
+        {(10, STUDY_ENVS): f"ant_heavenhell,B={STUDY_ENVS}"})
+    for r in rec:
+        print(json.dumps(r), flush=True)
+        if r["resets"] == 0 or r["launches"] != STUDY_STEPS:
+            fail(f"autoreset_study {r['mode']}: no reset, or not one launch a step")
+    rec = run("substeps_probe", lambda: substeps_probe.main(
+        ["ant_tag", str(STUDY_ENVS), str(PROBE_STEPS)], dev, PROBE_CANDIDATES))
+    for r, (tag_, *_rest) in zip(rec, TOOL_CORES[4:4 + len(PROBE_CANDIDATES)]):
+        if r["launches"] != PROBE_STEPS or r["nan_frac"] != r["nan_frac"]:
+            fail(f"substeps_probe {r['substeps']}, {r['stiffness_scale']}: {r['launches']} "
+                 f"launches, not {PROBE_STEPS}")
+        add(tag_, r["launches"])
+    rec = run("ant_speed_probe", lambda: ant_speed_probe.main(episodes=SPEED_EPISODES,
+                                                               device=dev),
+              {(x6, SPEED_EPISODES): f"{LEARNER},B={SPEED_EPISODES}"})
+    _finite_rates("ant_speed_probe", list(rec.values()))
+    rec = run("per_study", lambda: per_study.main(
+        (PER_BUDGET,), (0,), dev, os.path.join(tmp, "per_study.json")),
+        {(sub_p, 64): "inverted_pendulum,B=64", (sub_p, ev): f"inverted_pendulum,B={ev}"})
+    _finite_rates("per_study", rec["uniform"][str(PER_BUDGET)] + rec["per"][str(PER_BUDGET)])
+    for name, tool, entry in (("gather", render_gather_policy, "ant_gather,action_repeat=6,B=1"),
+                              ("maze", render_maze_policy, "ant_maze,action_repeat=6,B=1")):
+        page = os.path.join(tmp, f"{name}.html")
+        rec = run(f"render {name}", lambda: tool.main(page, device=dev), {(x6, 1): entry})
+        with open(page) as f:
+            frames = json.loads(re.search(r"const FRAMES\s*=\s*(.*?);\n", f.read(),
+                                          re.DOTALL).group(1))
+        if len(frames) != rec["frames"] or rec["launches"] != rec["frames"]:
+            fail(f"render {name}: {len(frames)} frames, {rec['launches']} launches")
+    return launches
+
+
 def phase_shaping_overhead(dev, card: str) -> None:
     """What each shaped wrapper adds to a control step of the learners'
     stack (ActionRepeat(6) -> Episode(1000) -> Vmap(GRU_ENVS) -> cached
@@ -1900,6 +2133,10 @@ def main() -> None:
     compared.update(examples_cases)
     warps.update({k: whole_step.resident_warps(c[0]) for k, c in examples_cases.items()})
     lap("kernel-vs-plain:the examples' Systems")
+    tools_cases = phase_tools_kernel_vs_plain(dev)
+    compared.update(tools_cases)
+    warps.update({k: whole_step.resident_warps(c[0]) for k, c in tools_cases.items()})
+    lap("kernel-vs-plain:the benches' and tools' Systems")
     for path in FIXTURES:
         phase_fixture(dev, path)
         lap(f"fixture:{os.path.basename(path)}")
@@ -1955,6 +2192,12 @@ def main() -> None:
         for key, n in phase_examples_parallel(tmp).items():
             launches[key] = launches.get(key, 0) + n
     lap(f"examples, {len(EXAMPLE_PARTS)} processes at once")
+    t_tools = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, n in phase_tools(dev, card, tmp, lap).items():
+            launches[key] = launches.get(key, 0) + n
+    print(f"[clock] benches and tools (phase 19): {time.perf_counter() - t_tools:.1f} s",
+          flush=True)
 
     entries = []
     cases = [(name, case, True) for name, case in compared.items()]

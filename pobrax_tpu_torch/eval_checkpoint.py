@@ -15,7 +15,7 @@ tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
 (300 frames).
 
 Usage: python -m pobrax_tpu_torch.eval_checkpoint --gather|--gather-bombmem|--maze
-       [--device cpu] [--episodes N] [--seeds S ...] [--html OUT]
+       [--device cpu] [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
 (the card unless a device is named)
 """
 
@@ -50,30 +50,33 @@ def npz_path(name: str) -> str:
     return os.path.join(_DIR, CHECKPOINTS[name][1])
 
 
-def load(name: str, device=None):
+def load(name: str, device=None, npz: Optional[str] = None):
     """-> (learner, training state, checksum matches): an RNNPPOLearner at
     the examples' widths (hidden 128, encoder (256,)) for the checkpoint's
-    env, with its state loaded on `device`."""
+    env, with its state loaded on `device` from `npz` (the committed export
+    of `name` unless given)."""
     env = _envs[CHECKPOINTS[name][0]](device=resolve(device))
     learner = ppo_rnn.RNNPPOLearner(env, ppo_rnn.ANT_TAG)
-    tree = ckpt.load_npz(npz_path(name))
+    tree = ckpt.load_npz(npz or npz_path(name))
     ts = interop.training_state_from_numpy(tree, learner)
     same = interop.params_checksum(interop.params_to_numpy(ts.params)) == tree["params_sha256"]
     return learner, ts, same
 
 
 def evaluate(name: str, learner, ts, episodes: int = 256,
-             seeds: Optional[Sequence[int]] = None) -> dict:
-    """The example's evaluator, det and stoch, at seed 0 (or at each of
-    `seeds`): {"det_apples": .., "det_bombs": .., "det_net": .., ...} or
-    {"det_goal_rate": .., ...} (keys suffixed _s<seed> with `seeds`)."""
+             seeds: Optional[Sequence[int]] = None,
+             modes: Sequence[str] = ("det", "stoch")) -> dict:
+    """The example's evaluator, det and stoch (or the `modes` named), at
+    seed 0 (or at each of `seeds`): {"det_apples": .., "det_bombs": ..,
+    "det_net": .., ...} or {"det_goal_rate": .., ...} (keys suffixed
+    _s<seed> with `seeds`)."""
     inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
     env_name = CHECKPOINTS[name][0]
     out = {}
     for seed in ([0] if seeds is None else seeds):
         suffix = "" if seeds is None else f"_s{seed}"
-        for det in (True, False):
-            mode = "det" if det else "stoch"
+        for mode in modes:
+            det = mode == "det"
             core = _envs[env_name](device=learner.device)
             if env_name == "ant_maze":
                 out[f"{mode}_goal_rate{suffix}"] = goal_rate_rnn(
@@ -88,11 +91,13 @@ def evaluate(name: str, learner, ts, episodes: int = 256,
 
 
 @torch.no_grad()
-def render(name: str, learner, ts, out: str) -> dict:
+def render(name: str, learner, ts, out: str, frames: Optional[int] = None) -> dict:
     """The deterministic episode of tools/render_gather_policy.py /
     render_maze_policy.py (reset key PRNGKey(1), action keys from
-    PRNGKey(2)) saved by `html.save`; -> what it caught or reached."""
-    env_name, _, frames = CHECKPOINTS[name]
+    PRNGKey(2)), `frames` control steps (500 / 300 unless given), saved by
+    `html.save`; -> what it caught or reached."""
+    env_name, _, default_frames = CHECKPOINTS[name]
+    frames = frames or default_frames
     core = _envs[env_name](device=learner.device)
     env = wrappers.ActionRepeatWrapper(core, HAI_ACTION_REPEAT)
     env = wrappers.EpisodeWrapper(env, 1000, 1)
@@ -119,13 +124,13 @@ def render(name: str, learner, ts, out: str) -> dict:
 
 
 def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[int]] = None,
-         html_out: Optional[str] = None) -> dict:
+         html_out: Optional[str] = None, modes: Sequence[str] = ("det", "stoch")) -> dict:
     learner, ts, same = load(name, device)
     if not same:
         raise RuntimeError(f"{npz_path(name)}: the loaded parameters do not match their "
                            "checksum")
     result = {"npz": npz_path(name), "epochs": ts.epochs, "checksum_ok": same,
-              "episodes": episodes, **evaluate(name, learner, ts, episodes, seeds)}
+              "episodes": episodes, **evaluate(name, learner, ts, episodes, seeds, modes)}
     if html_out:
         result["html"] = render(name, learner, ts, html_out)
     print(json.dumps(result), flush=True)
@@ -142,5 +147,6 @@ if __name__ == "__main__":
     parser.add_argument("--episodes", type=int, default=256)
     parser.add_argument("--seeds", type=int, nargs="+", default=None)
     parser.add_argument("--html", default=None, help="write the rendered episode here")
+    parser.add_argument("--modes", nargs="+", choices=("det", "stoch"), default=["det", "stoch"])
     args = parser.parse_args()
-    main(args.name, args.device, args.episodes, args.seeds, args.html)
+    main(args.name, args.device, args.episodes, args.seeds, args.html, args.modes)

@@ -1,15 +1,18 @@
 """The process mesh and its collectives on `torch.distributed`; the port of
 `pobrax_tpu/parallel/mesh.py`.
 
-JAX lays a ('data', 'model') mesh over devices and lets XLA insert the
-collectives. Here every process of a `torch.distributed` group is one
-position on the 'data' axis and holds its own device; the learners call the
-collectives below themselves:
+JAX lays a ('data', 'model') mesh over devices (the device list reshaped
+to (data, model), row-major) and lets XLA insert the collectives. Here
+every process of a `torch.distributed` group is one position of that grid,
+process r at (r // model, r % model), and holds its own device; the learners
+call the collectives below themselves:
   * `shard_batch` keeps a process's contiguous block of a leading batch
     axis, JAX's `P('data')` layout: rank d of D holds rows
     [d * B / D, (d + 1) * B / D);
   * `replicate` broadcasts tensors from rank 0 (JAX's `P()`);
-  * `psum` / `pmean` are one `all_reduce` of a tensor over the group;
+  * `psum` / `pmean` are one `all_reduce` of a tensor over the 'data' axis:
+    the processes of this one's 'model' index (a group each, made by
+    `make_mesh`; the whole group where 'model' is 1);
   * `draw_block` names the rank's block of a draw whose shape is global, so
     `random` can give each rank its rows of the single-process draw.
 A `Mesh` with no process group (one process, `torch.distributed` not
@@ -19,9 +22,11 @@ The backend is the caller's choice and is never switched after a failure:
 "nccl" where every rank owns a card (`torch.cuda.set_device(LOCAL_RANK)`
 before the group comes up), "gloo" for the CPU and for several ranks
 sharing one card (NCCL refuses two ranks on one GPU; gloo's `all_reduce`
-and `broadcast` take CUDA tensors through the host). Only 'model' = 1 is
-ported: JAX's 'model' axis is reserved for parameter sharding that no
-caller uses.
+and `broadcast` take CUDA tensors through the host). The 'model' axis has
+JAX's semantics: the batch is sharded over 'data' and replicated over
+'model', parameters are replicated everywhere (JAX reserves the axis for
+parameter sharding, which no caller does), so the processes of one 'data'
+position compute the same thing; process 0 writes checkpoints.
 
 `spawn` runs a function on n local ranks (the `spawn` start method, a free
 TCP port, a deadline; every rank is killed when one fails) for the tests,
@@ -49,14 +54,21 @@ from pobrax_tpu_torch.device import resolve
 @dataclass(frozen=True)
 class Mesh:
     """A ('data', 'model') mesh over the processes of a group: this process
-    is position `rank` of `data` on the 'data' axis and runs on `device`."""
+    is position `rank` of `data` on the 'data' axis and `model_rank` of
+    `model` on the 'model' axis, and runs on `device`."""
 
     data: int
     model: int
     rank: int
-    group: Optional[Any]  # the process group; None: no group (one process)
+    group: Optional[Any]  # its 'data' axis's process group; None: no group (one process)
     device: torch.device
     backend: Optional[str]
+    model_rank: int = 0
+
+    @property
+    def process_rank(self) -> int:
+        """This process's rank in the whole group (row-major over (data, model))."""
+        return self.rank * self.model + self.model_rank
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -103,9 +115,11 @@ def initialize_distributed(backend: str = "nccl", init_method: Optional[str] = N
 def make_mesh(data: Optional[int] = None, model: int = 1,
               device: Optional[Union[str, torch.device]] = None) -> Mesh:
     """A ('data', 'model') mesh over the processes of the default group (one
-    process when none is initialised). `data * model` must tile them; 'model'
-    > 1 is not ported. The device is the card unless the caller names
-    another; under NCCL it is this process's card, LOCAL_RANK."""
+    process when none is initialised). `data * model` must tile them;
+    process r sits at (r // model, r % model). With 'model' > 1 every
+    process must call this together: it makes one process group per 'model'
+    index, that index's 'data' axis. The device is the card unless the
+    caller names another; under NCCL it is this process's card, LOCAL_RANK."""
     if dist.is_available() and dist.is_initialized():
         world, rank, backend = dist.get_world_size(), dist.get_rank(), dist.get_backend()
         group = dist.group.WORLD
@@ -115,15 +129,17 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
         data = world // model
     if data * model != world:
         raise ValueError(f"mesh {data}x{model} does not tile {world} processes")
-    if model != 1:
-        raise ValueError("a 'model' axis > 1 (parameter sharding) is not ported; "
-                         "see ROADMAP.md §1")
+    rank, model_rank = divmod(rank, model)
+    if group is not None and model > 1:
+        groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
+        group = groups[model_rank]
     device = resolve(device)
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError(f"NCCL needs CUDA tensors, not {device}")
         device = torch.device("cuda", local_rank())
-    return Mesh(data=data, model=model, rank=rank, group=group, device=device, backend=backend)
+    return Mesh(data=data, model=model, rank=rank, group=group, device=device, backend=backend,
+                model_rank=model_rank)
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], x):
@@ -148,14 +164,15 @@ def shard_batch(tree, mesh: Mesh):
 
 def replicate(tree, mesh: Mesh):
     """Every tensor of `tree` (modules: their parameters and buffers) set to
-    rank 0's values, in place; returns `tree`. Host values (ints, floats)
-    are left as they are: the caller keeps them equal."""
+    process 0's values on every process of the mesh, in place; returns
+    `tree`. Host values (ints, floats) are left as they are: the caller keeps
+    them equal."""
     if mesh.group is None:
         return tree
 
     def bcast(t: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
-            dist.broadcast(t, src=0, group=mesh.group)
+            dist.broadcast(t, src=0)
         return t
 
     if isinstance(tree, nn.Module):
@@ -180,8 +197,8 @@ def replicate(tree, mesh: Mesh):
 
 
 def psum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The sum of `x` over the mesh's ranks (one `all_reduce`); `x` itself
-    without a mesh or a group."""
+    """The sum of `x` over the mesh's 'data' axis (one `all_reduce`); `x`
+    itself without a mesh or a group."""
     if mesh is None or mesh.group is None:
         return x
     out = x.detach().clone()
@@ -190,7 +207,7 @@ def psum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
 
 
 def pmean(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The mean of `x` over the mesh's ranks (one `all_reduce`)."""
+    """The mean of `x` over the mesh's 'data' axis (one `all_reduce`)."""
     if mesh is None or mesh.group is None:
         return x
     return psum(x, mesh) / mesh.data
@@ -203,8 +220,9 @@ def draw_block(mesh: Optional[Mesh], axis: int = 0) -> Optional[Tuple[int, int, 
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
+    """Every process of the mesh meets here."""
     if mesh is not None and mesh.group is not None:
-        dist.barrier(group=mesh.group)
+        dist.barrier()
 
 
 # ---- local ranks -------------------------------------------------------------
@@ -216,24 +234,26 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank: int, nprocs: int, backend: str, device, port: int, args, results):
+def _rank_main(fn, rank: int, nprocs: int, backend: str, device, port: int, model: int, args,
+               results):
     os.environ["LOCAL_RANK"] = str(rank)
     initialize_distributed(backend, init_method=f"tcp://localhost:{port}", rank=rank,
                            world_size=nprocs)
     try:
         # pickled here by value: the queue's own pickler would pass tensors as
         # shared-memory handles, which die with this process
-        results.put((rank, pickle.dumps(fn(make_mesh(device=device), *args))))
+        results.put((rank, pickle.dumps(fn(make_mesh(model=model, device=device), *args))))
     finally:
         dist.destroy_process_group()
 
 
 def spawn(fn: Callable, nprocs: int, backend: str, device, *args,
-          timeout: float = 600.0) -> List[Any]:
+          timeout: float = 600.0, model: int = 1) -> List[Any]:
     """Run `fn(mesh, *args)` on `nprocs` local ranks of a new process group
     (`backend` over tcp://localhost and a free port; `device` as
-    `make_mesh` takes it, each NCCL rank on its own card) and return each
-    rank's result, in rank order. `fn` must be importable by name (the
+    `make_mesh` takes it, each NCCL rank on its own card; the mesh is
+    `nprocs / model` x `model`) and return each rank's result, in rank
+    order. `fn` must be importable by name (the
     `spawn` start method: the parent may hold a CUDA context) and return a
     picklable value (tensors on the CPU). If a rank exits non-zero or the
     ranks outlast `timeout` seconds, every rank is killed and this raises."""
@@ -241,7 +261,7 @@ def spawn(fn: Callable, nprocs: int, backend: str, device, *args,
     results = ctx.SimpleQueue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(fn, r, nprocs, backend, device, port, args, results))
+                         args=(fn, r, nprocs, backend, device, port, model, args, results))
              for r in range(nprocs)]
     for p in procs:
         p.start()

@@ -20,7 +20,6 @@ device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 import time
 
@@ -30,14 +29,9 @@ from torch.profiler import ProfilerActivity, profile
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, create
 from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
+from pobrax_tpu_torch.utils.profiling import card_line
 
 TRACE_STEPS = 5
-
-
-def _card() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
 def profile_mode(env_name: str, masked: bool, mode: str, steps: int, batch: int,
@@ -194,7 +188,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         sys.exit(1)
-    print(f"[profile] {_card()}", flush=True)
+    print(f"[profile] {card_line()}", flush=True)
     if args.learner in ("sac", "gru_sac"):
         profile_off_policy(args.learner)
         return

@@ -77,10 +77,10 @@ def latest_step_dir(root: str) -> Optional[str]:
 
 
 def save_step(root: str, step: int, ts, mesh=None) -> str:
-    """Save `ts` under `root/step_<step>`; with a `mesh`, rank 0 writes and
-    the ranks meet at a barrier after it."""
+    """Save `ts` under `root/step_<step>`; with a `mesh`, process 0 writes
+    and every process meets the others at a barrier after it."""
     path = os.path.join(root, f"step_{step:012d}")
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.process_rank == 0:
         save(path, ts)
     barrier(mesh)
     return path

@@ -535,7 +535,7 @@ def run_epochs(learner, ts, carry: tuple, key: torch.Tensor, num_calls: int,
     watchdog reports), and only rank 0 writes the checkpoint.
     -> (ts, carry, history)."""
     mesh = learner.mesh
-    several = mesh is not None and mesh.data > 1
+    several = mesh is not None and mesh.world > 1
     per_call = learner.steps_per_epoch * epochs_per_call
     history = []
     t0 = time.perf_counter()

@@ -4,16 +4,88 @@ A steps/s meter that separates the first call (kernel builds, allocator
 warm-up) from the steady state, `torch.profiler` trace capture, and
 `record_function` scopes for phase attribution in traces. CUDA work is
 asynchronous, so every timed call ends in `torch.cuda.synchronize()`.
+
+Also the card's readings and kernel timers that the benches, the tools,
+time_kernel.py and chip_smoke.py share: `card_line` (nvidia-smi's name and
+power limit), `record_device` (the keys every bench record carries),
+`cuda_ms` (back-to-back calls under CUDA events) and `device_ms` (a call's
+device time, queued behind a sleep kernel).
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
 import torch
+
+
+def smi(query: str) -> str:
+    """One line of `nvidia-smi --query-gpu=<query>` for the first card."""
+    try:
+        out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return "nvidia-smi failed"
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return smi("name,power.limit")
+
+
+def record_device(device: torch.device) -> dict:
+    """What every bench and tool record says of where it ran: the device
+    ("cuda" or "cpu") and, on the card, its name and power limit (None on
+    the CPU: such a record is no card number)."""
+    device = torch.device(device)
+    return {"device": device.type, "card": card_line() if device.type == "cuda" else None}
+
+
+def cuda_ms(fn, reps: int, warm_s: float = 0.2) -> float:
+    """Mean time of fn() in ms over `reps` back-to-back calls under CUDA
+    events, after at least `warm_s` seconds of calls, so that the SM clock
+    has risen from a mostly idle phase before (a short warm-up read the small
+    Systems up to 2x slow)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        fn()
+        torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time in ms of fn()'s launch, back to back on the device:
+    a sleep kernel holds the stream while the host enqueues `reps` calls, so
+    the kernel's own time shows even where the wrapper's host work per
+    launch outlasts it (the small Systems). Raises unless the sleep outlasted
+    the enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = 50_000_000  # ~25 ms at the H100's 1.98 GHz
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()  # the sleep still ran when the last call was enqueued
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("device_ms: the host did not enqueue the timed launches within the sleep")
 
 
 @dataclass

@@ -39,7 +39,12 @@ missing = ({{"pobrax_tpu_torch.envs." + m for m in
               ("ppo", "ppo_rnn", "distribution", "running_statistics", "optimizer",
                "checkpoint", "replay", "sac", "sac_rnn")}}
            | {{"pobrax_tpu_torch.models.networks", "pobrax_tpu_torch.eval_tag_checkpoint",
-               "pobrax_tpu_torch.eval_checkpoint"}}
+               "pobrax_tpu_torch.eval_checkpoint", "pobrax_tpu_torch.bench",
+               "pobrax_tpu_torch.bench_scaling"}}
+           | {{"pobrax_tpu_torch.tools." + m for m in
+              ("bench_train", "bench_substeps", "ablate_bench", "roofline", "autoreset_study",
+               "substeps_probe", "overlap_study", "ant_speed_probe", "per_study",
+               "render_gather_policy", "render_maze_policy", "paired_seeds")}}
            | {{"pobrax_tpu_torch.examples." + m for m in
               ("train_ant_tag", "train_ant_tag_rnn", "train_ant_tag_sac_rnn",
                "train_ant_tag_sac_rnn_carry", "train_heavenhell_rnn", "train_heavenhell_sac_rnn",

@@ -1,8 +1,9 @@
 """The port's process mesh (`pobrax_tpu_torch/parallel/mesh.py`), its
 collectives and the multi-process entry points, on the CPU over gloo.
 
-  * `make_mesh` validates as JAX's (`data * model` must tile the processes;
-    'model' > 1 is not ported), one process makes a 1x1 mesh whose
+  * `make_mesh` validates as JAX's (`data * model` must tile the processes),
+    two processes also make a 1x2 mesh (each its own 'data' axis, at model
+    index = its rank; its psum is its own value), one process makes a 1x1 mesh whose
     collectives return their input, and `initialize_distributed` is False
     with no rendezvous configured;
   * across two processes (a jax-free worker): `shard_batch` keeps each
@@ -50,12 +51,14 @@ _WORKER = """
         out = {"shape": mesh.shape, "rank": mesh.rank, "world": mesh.data,
                "backend": mesh.backend}
         errors = []
-        for kw in (dict(data=3), dict(data=1, model=2)):
-            try:
-                pm.make_mesh(device="cpu", **kw)
-            except ValueError as e:
-                errors.append(str(e))
+        try:
+            pm.make_mesh(device="cpu", data=3)
+        except ValueError as e:
+            errors.append(str(e))
         out["errors"] = errors
+        wide = pm.make_mesh(device="cpu", data=1, model=2)
+        out["model_mesh"] = (wide.shape, wide.rank, wide.model_rank, wide.process_rank,
+                             pm.psum(torch.tensor([mesh.rank + 1.0]), wide).numpy())
         batch = torch.arange(8 * 3).reshape(8, 3)
         state = State(qp=None, obs=batch.float(), reward=torch.arange(8.0), done=torch.zeros(8),
                       metrics={}, info={"rng": torch.arange(16).reshape(8, 2)})
@@ -137,7 +140,9 @@ def test_two_ranks_make_a_2x1_mesh_and_refuse_other_shapes(ranks):
         assert (r["shape"], r["rank"], r["world"], r["backend"]) == (
             {"data": 2, "model": 1}, d, 2, "gloo")
         assert "does not tile 2 processes" in r["errors"][0]
-        assert "ROADMAP" in r["errors"][1]
+        shape, rank, model_rank, process_rank, own = r["model_mesh"]
+        assert (shape, rank, model_rank, process_rank) == ({"data": 1, "model": 2}, 0, d, d)
+        np.testing.assert_array_equal(own, [d + 1.0])  # a 'data' axis of one: its own value
 
 
 def test_shard_batch_keeps_each_ranks_block(ranks):

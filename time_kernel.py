@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the whole-step CUDA kernel of a checkout on one NVIDIA GPU:
-`python3 time_kernel.py`. Also holds the timing helpers `chip_smoke.py`
-uses, so that both read the kernel the same way.
+`python3 time_kernel.py`. Its timing helpers are `pobrax_tpu_torch.utils.profiling`'s,
+which `chip_smoke.py` and the benches use too, so that all read the kernel
+the same way.
 
 For each System, a batch of B=4096 envs is reset and stepped 20 plain steps
 (contacts live), then one control step of random actions is launched for at
@@ -24,71 +25,17 @@ Imports no jax; needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
+
+from pobrax_tpu_torch.utils.profiling import card_line, cuda_ms, device_ms, smi
 
 HERE = Path(__file__).resolve().parent
 SYSTEMS = ("ant_tag", "ant_heavenhell", "ant_gather", "ant_maze", "humanoid", "grasp", "fetch",
            "ur5e", "reacherangle", "inverted_double_pendulum")
 B, WARM_STEPS = 4096, 20
-
-
-def smi(query: str) -> str:
-    """One line of `nvidia-smi --query-gpu=<query>` for the first card."""
-    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return smi("name,power.limit")
-
-
-def cuda_ms(fn, reps: int, warm_s: float = 0.2) -> float:
-    """Mean time of fn() in ms over `reps` back-to-back calls under CUDA
-    events, after at least `warm_s` seconds of calls, so that the SM clock
-    has risen from a mostly idle phase before (a short warm-up read the small
-    Systems up to 2x slow)."""
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < warm_s:
-        fn()
-        torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """Mean device time in ms of fn()'s launch, back to back on the device:
-    a sleep kernel holds the stream while the host enqueues `reps` calls, so
-    the kernel's own time shows even where the wrapper's host work per
-    launch outlasts it (the small Systems). Raises unless the sleep outlasted
-    the enqueueing."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    cycles = 50_000_000  # ~25 ms at the H100's 1.98 GHz
-    for _ in range(4):
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        held = not start.query()  # the sleep still ran when the last call was enqueued
-        torch.cuda.synchronize()
-        if held:
-            return start.elapsed_time(end) / reps
-        cycles *= 4
-    raise RuntimeError("device_ms: the host did not enqueue the timed launches within the sleep")
 
 
 def main(argv=None) -> None:
@@ -98,6 +45,9 @@ def main(argv=None) -> None:
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
+    if root != HERE:  # the timed package is the other checkout's; the helpers stay this one's
+        for name in [m for m in sys.modules if m.split(".")[0] == "pobrax_tpu_torch"]:
+            del sys.modules[name]
     sys.path.insert(0, str(root))
     from pobrax_tpu_torch import random as jr
     from pobrax_tpu_torch.envs import create
