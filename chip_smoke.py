@@ -20,7 +20,9 @@ them. Imports no jax and nothing of
      memory);
   3. kernel against plain at 4096 envs, from an AntTag reset plus 50 plain
      steps (ground contacts active) with 256 of the ants pushed against an
-     arena wall (capsule-box contacts active): one control step each way;
+     arena wall (capsule-box contacts active): one control step each way
+     (in every comparison the plain steps sum in a fixed order and the
+     compared one is run twice and must repeat bit for bit);
      then the same for each stock System (humanoid, grasp, fetch, ur5e,
      reacherangle, inverted_double_pendulum) after a few plain steps from
      reset, with grasp's Object placed against a finger in 256 envs
@@ -211,6 +213,20 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      the entry of its (System, batch): by (substeps, batch), or where two
      Systems share those (the ablations, the probe's candidates) by the
      tool's own count of each.
+ 20. the port's surface (run after phase 8): (a) `import pobrax_tpu_torch`
+     reaches every name its `__all__` and its subpackages' `__all__` export
+     (the JAX package's eight subpackages, `training.networks` and the
+     learner modules, `ops`' 13 helpers); (b) each `ops` helper, and `norm`
+     / `safe_norm` / `normalize` along axis 0 with keepdims, on CUDA tensors
+     against the same call on the CPU (rtol 1e-6, atol 1e-6), with the
+     identity and |xyz| < 1e-10 quaternions (axis (1, 0, 0)), w < 0 (angles
+     in (-pi, pi]) and zero vectors (exactly 0); (c) one PPO epoch at
+     `ppo.ANT_TAG` (4096 envs, cached) with `flatten_optimizer=False` (the
+     Adam state carried in optax's per-leaf layout) from the same state, env
+     reset and key as one with True: every parameter within UPDATE_TOL
+     (5e-5), finite losses, moved parameters, 16 launches each; each
+     epoch's Adam state through `interop` and back bit for bit, the per-leaf
+     moments as trees in the parameters' layout.
 A `[clock]` line after each phase gives its seconds and the seconds since
 the start. Then one JSON line with an entry per System (halfcheetah one per
 batch; each with its resident warps per SM), the card's name and power
@@ -235,6 +251,8 @@ import time
 import numpy as np
 import torch
 
+import pobrax_tpu_torch
+from pobrax_tpu_torch import interop, ops
 from pobrax_tpu_torch import bench, bench_scaling, eval_checkpoint, eval_tag_checkpoint, graft_entry
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import MaskedObservationWrapper, Wrapper, _envs, create, wrappers
@@ -274,6 +292,8 @@ WALL_ENVS, WALL_TORSO_X = 256, 5.15  # the +x arena wall's inner face is at x = 
 # `pen > 0` / `imp > 0` switches can flip and one env's velocities jump. So at
 # least 99.5% of envs must agree to the fused-vs-generic tolerances of
 # tests/test_fused.py (pos/rot 1e-5, vel/ang 1e-3); the rest are such onsets.
+# The plain steps of the comparisons sum in a fixed order (`plain_step`), so
+# a batch's share is the same in every run
 TOL_POS, TOL_VEL, MIN_AGREE = 1e-5, 1e-3, 0.995
 STEPS_GATED = 20  # fixture obs gated at 1e-3 over the first 20 steps
 # stock Systems: plain steps from reset before the comparison, enough for
@@ -387,6 +407,11 @@ EXAMPLE_PARTS = (("shaping", "a", "b", "c"), ("d", "e", "g"), ("f", "h"))
 # gate is the lowest of the JAX package's own values over reset seeds 0-4
 # (tools/eval_gather_checkpoint_seeds.py, on the CPU) less 0.5, about three
 # standard deviations of that spread, rounded down to 0.1
+# phase 20: the subpackages `import pobrax_tpu_torch` must reach (the JAX
+# package's), the ops inputs' batch, and CUDA against the CPU for the ops
+SURFACE_SUBPACKAGES = ("envs", "io", "models", "ops", "parallel", "physics", "training", "utils")
+OPS_N = 4096
+OPS_RTOL = OPS_ATOL = 1e-6
 REPLAY_GATES = {
     "gather": {"det_apples": 5.3, "det_net": 2.1, "stoch_apples": 5.7, "stoch_net": 2.0},
     "gather_bombmem": {"det_apples": 4.5, "det_net": 1.7, "stoch_apples": 6.0, "stoch_net": 2.2},
@@ -422,22 +447,41 @@ def phase_build(dev) -> dict:
     return warps
 
 
+def plain_step(sys_, qp, act):
+    """The plain reference step with its per-body sums (`index_add`) in a
+    fixed order: on the card index_add's default kernel adds with atomics in
+    no fixed order, so the reference could round differently from run to
+    run and move a contact onset past the tolerances."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return sys_.step_generic(qp, act)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def plain_steps(sys_, qp, steps: int, g):
     """`steps` plain steps of random actions drawn from generator `g`."""
     for _ in range(steps):
-        qp, _ = sys_.step_generic(qp, torch.rand(qp.pos.shape[0], sys_.action_size, generator=g,
-                                                 device=qp.pos.device) * 2 - 1)
+        qp, _ = plain_step(sys_, qp, torch.rand(qp.pos.shape[0], sys_.action_size, generator=g,
+                                                device=qp.pos.device) * 2 - 1)
     return qp
 
 
 def compare(tag: str, sys_, qp, act, note: str, min_agree: float = MIN_AGREE):
     """One control step through the kernel and through the plain step from
-    `qp`; fails unless `min_agree` of the envs agree and all is finite.
-    Returns the largest |err| over pos/rot/vel/ang."""
+    `qp`; fails unless a second plain step repeats the first bit for bit,
+    `min_agree` of the envs agree and all is finite. Returns the largest
+    |err| over pos/rot/vel/ang."""
     batch = qp.pos.shape[0]
     qk, ik = whole_step.launch(sys_, qp, act)
-    qg, ig = sys_.step_generic(qp, act)
+    qg, ig = plain_step(sys_, qp, act)
+    again, i_again = plain_step(sys_, qp, act)
     torch.cuda.synchronize()
+    fields = ("pos", "rot", "vel", "ang")
+    if not (all(torch.equal(getattr(qg, f), getattr(again, f)) for f in fields)
+            and torch.equal(ig.contact.vel, i_again.contact.vel)):
+        fail(f"{tag}: two plain steps from the same inputs differ: the reference is not "
+             "deterministic")
     pairs = {"pos": (qk.pos, qg.pos), "rot": (qk.rot, qg.rot), "vel": (qk.vel, qg.vel),
              "ang": (qk.ang, qg.ang), "contact.vel": (ik.contact.vel, ig.contact.vel)}
     errs = {k: (a - b).abs().flatten(1).max(1).values for k, (a, b) in pairs.items()}
@@ -2066,6 +2110,178 @@ def phase_shaping_overhead(dev, card: str) -> None:
               f"(+{kernels['shaped'] - kernels['plain']:.1f}); {card}", flush=True)
 
 
+def _ops_inputs() -> dict:
+    """Phase 20's numpy-seeded inputs: unit quaternions (row 0 the identity,
+    row 1 with |xyz| < 1e-10, the first half of the rest with w < 0), a
+    partner for each, vectors with every third zero, Euler angles in
+    degrees, axes and angles."""
+    rng = np.random.default_rng(0)
+
+    def unit(x):
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    q = unit(rng.normal(size=(OPS_N, 4)))
+    q[2:OPS_N // 2, 0] = -np.abs(q[2:OPS_N // 2, 0])
+    q[0] = (1.0, 0.0, 0.0, 0.0)
+    q[1] = (1.0, 1e-12, -1e-12, 1e-12)
+    v = rng.normal(size=(OPS_N, 3)) * 2
+    v[::3] = 0.0
+    arrays = {"q": q, "p": unit(rng.normal(size=(OPS_N, 4))), "v": v,
+              "w": rng.normal(size=(OPS_N, 3)), "deg": rng.uniform(-360, 360, (OPS_N, 3)),
+              "axis": unit(rng.normal(size=(OPS_N, 3))),
+              "angle": rng.uniform(-2 * np.pi, 2 * np.pi, OPS_N)}
+    return {k: torch.as_tensor(a.astype(np.float32)) for k, a in arrays.items()}
+
+
+OPS_CALLS = {
+    "quat_mul": lambda t: ops.quat_mul(t["q"], t["p"]),
+    "quat_inv": lambda t: ops.quat_inv(t["q"]),
+    "rotate": lambda t: ops.rotate(t["v"], t["q"]),
+    "inv_rotate": lambda t: ops.inv_rotate(t["w"], t["q"]),
+    "ang_to_quat": lambda t: ops.ang_to_quat(t["v"]),
+    "euler_to_quat": lambda t: ops.euler_to_quat(t["deg"]),
+    "quat_rot_axis": lambda t: ops.quat_rot_axis(t["axis"], t["angle"]),
+    "relative_quat": lambda t: ops.relative_quat(t["q"], t["p"]),
+    "quat_to_axis_angle": lambda t: ops.quat_to_axis_angle(t["q"]),
+    "cross": lambda t: ops.cross(t["v"], t["w"]),
+    "norm": lambda t: ops.norm(t["v"]),
+    "norm,axis=0,keepdims": lambda t: ops.norm(t["v"], axis=0, keepdims=True),
+    "safe_norm": lambda t: ops.safe_norm(t["v"]),
+    "safe_norm,axis=0,keepdims": lambda t: ops.safe_norm(t["v"], axis=0, keepdims=True),
+    "normalize": lambda t: ops.normalize(t["v"]),
+    "normalize,axis=0": lambda t: ops.normalize(t["v"], axis=0),
+}
+
+
+def _tree_items(tree, path=()):
+    """(path, array) of each leaf of a nested dict, keys sorted."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_items(tree[k], path + (k,))
+    else:
+        yield path, np.asarray(tree)
+
+
+def check_adam_layout(kind: str, learner, ts) -> None:
+    """`ts`'s Adam state through `interop` into the JAX learner's layout and
+    back: per-leaf moments must be trees in the parameters' own layout (a
+    moment equal to the parameters is their tree, leaf for leaf, bit for
+    bit), flat ones one vector; the round trip must give the state back bit
+    for bit."""
+    adam, out = ts.opt_state, interop.training_state_to_numpy(ts)
+    if any(isinstance(out["opt_state"][k], dict) != adam.per_leaf for k in ("mu", "nu")):
+        fail(f"{kind}: interop wrote the moments in the other layout")
+    if adam.per_leaf:
+        moment = dict(_tree_items(interop.tree_to_numpy(ts.params, params_vector(ts.params))))
+        want = dict(_tree_items(out["params"]))
+        if moment.keys() != want.keys() or not all(np.array_equal(moment[p], want[p])
+                                                   for p in want):
+            fail(f"{kind}: the per-leaf moments do not take the parameters' layout")
+    back = interop.training_state_from_numpy(out, learner).opt_state
+    if not (back.count == adam.count and back.per_leaf == adam.per_leaf
+            and torch.equal(back.mu, adam.mu) and torch.equal(back.nu, adam.nu)):
+        fail(f"{kind}: the Adam state does not cross interop and back bit for bit")
+    print(f"[surface:unflat] {kind}: Adam state (count {adam.count}) through interop as "
+          f"{'parameter-shaped trees' if adam.per_leaf else 'one flat vector'} and back, bit "
+          "for bit", flush=True)
+
+
+def phase_surface(dev, card: str) -> int:
+    """Phase 20: the re-exports, the ops on the card against the CPU, and a
+    PPO epoch with `flatten_optimizer=False` against one with True. Returns
+    the epochs' whole-step launches."""
+    # (a) every exported name, reached from the top package
+    subs = [n for n in pobrax_tpu_torch.__all__ if n != "__version__"]
+    if tuple(subs) != SURFACE_SUBPACKAGES:
+        fail(f"pobrax_tpu_torch exports {subs}, not {SURFACE_SUBPACKAGES}")
+    reached = []
+    for sub in subs:
+        mod = getattr(pobrax_tpu_torch, sub)
+        for name in mod.__all__:
+            if not hasattr(mod, name):
+                fail(f"pobrax_tpu_torch.{sub}.{name} does not resolve")
+            reached.append(f"{sub}.{name}")
+    for name in ("training.networks", "training.ppo", "training.sac_rnn", "ops.normalize",
+                 "ops.quat_to_axis_angle"):
+        if name not in reached:
+            fail(f"pobrax_tpu_torch.{name} is not exported")
+    print(f"[surface] import pobrax_tpu_torch reaches {len(subs)} subpackages and "
+          f"{len(reached)} exported names", flush=True)
+
+    # (b) the ops on CUDA tensors against the same calls on the CPU
+    cpu_in = _ops_inputs()
+    cuda_in = {k: v.to(dev) for k, v in cpu_in.items()}
+    out = {}
+    for name, call in OPS_CALLS.items():
+        got, want = call(cuda_in), call(cpu_in)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = 0.0
+        for g, w in zip(got, want):
+            g = g.cpu()
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                fail(f"ops.{name}: shape {tuple(g.shape)} (CPU {tuple(w.shape)}) or non-finite")
+            if not torch.allclose(g, w, rtol=OPS_RTOL, atol=OPS_ATOL):
+                fail(f"ops.{name} on the card disagrees with the CPU: max |err| "
+                     f"{float((g - w).abs().max()):.3e}")
+            err = max(err, float((g - w).abs().max()))
+        out[name] = [g.cpu() for g in got]
+        print(f"[surface:ops] {name}: CUDA against CPU max |err| {err:.3e} (rtol {OPS_RTOL:g}, "
+              f"atol {OPS_ATOL:g})", flush=True)
+    axis, angle = out["quat_to_axis_angle"]
+    x_axis = torch.tensor([1.0, 0.0, 0.0])
+    if not (torch.equal(axis[0], x_axis) and torch.equal(axis[1], x_axis)
+            and float(angle[0]) == 0.0):
+        fail("quat_to_axis_angle: the identity / |xyz| < 1e-10 branch is not (1, 0, 0)")
+    if not bool(((angle > -np.pi) & (angle <= np.float32(np.pi))).all()) \
+            or not bool((angle[2:OPS_N // 2] <= 0).all()):
+        fail("quat_to_axis_angle: an angle outside (-pi, pi] or a w < 0 angle not wrapped")
+    zero = out["normalize"][0][::3]
+    if not (bool((zero == 0).all()) and bool((out["safe_norm"][0][::3] == 0).all())):
+        fail("normalize / safe_norm: a zero vector did not give exactly 0")
+    print("[surface:ops] branches: identity and |xyz| < 1e-10 -> axis (1, 0, 0); w < 0 "
+          "angles wrapped into (-pi, pi]; zero vectors -> 0", flush=True)
+
+    # (c) PPO's epoch with the per-leaf Adam state against the flat one
+    cfgs = {"flat": ppo.ANT_TAG, "per_leaf": dataclasses.replace(ppo.ANT_TAG,
+                                                                 flatten_optimizer=False)}
+    key, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)
+    params, launched = {}, 0
+    for kind, cfg in cfgs.items():
+        env = ppo.wrap_for_training(AntTagEnv(device=dev), cfg, "cached")
+        learner = ppo.PPOLearner(env, cfg)
+        ts = learner.init(k_init)
+        if ts.opt_state.per_leaf == cfg.flatten_optimizer:
+            fail(f"{kind}: the optimizer state's layout does not follow flatten_optimizer")
+        initial = params_vector(ts.params)
+        state = env.reset(jr.split(k_reset, cfg.num_envs))
+        torch.cuda.synchronize()
+        before, t0 = whole_step.launches, time.perf_counter()
+        ts, _, m = learner.epoch(ts, state, key)
+        torch.cuda.synchronize()
+        n = whole_step.launches - before
+        launched += n
+        params[kind] = params_vector(ts.params)
+        moved = float((params[kind] - initial).abs().max())
+        print(f"[surface:unflat] {kind} ({'flatten_optimizer=' + str(cfg.flatten_optimizer)}): "
+              f"one epoch of {cfg.num_envs} envs {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+              f"whole-step launches {n}, total_loss {float(m['total_loss']):.6f}, largest "
+              f"parameter change {moved:.6e}; {card}", flush=True)
+        if n != cfg.unroll_length:
+            fail(f"{kind}: the epoch launched the kernel {n} times, not {cfg.unroll_length}")
+        if not all(np.isfinite(float(m[k])) for k in ("total_loss", "policy_loss",
+                                                      "value_loss", "entropy")):
+            fail(f"{kind}: a non-finite loss")
+        if not np.isfinite(moved) or moved == 0.0:
+            fail(f"{kind}: the parameters did not change")
+        check_adam_layout(kind, learner, ts)
+    diff = float((params["per_leaf"] - params["flat"]).abs().max())
+    print(f"[surface:unflat] per-leaf against flat: max |param diff| {diff:.3e} over "
+          f"{params['flat'].numel()} parameters (need <= {UPDATE_TOL:g})", flush=True)
+    if not diff <= UPDATE_TOL:
+        fail("flatten_optimizer=False parts from the flat optimizer's epoch")
+    return launched
+
+
 def phase_examples_kernel_vs_plain(dev) -> dict:
     """The kernel against the plain step on each (System, batch) the examples
     add: -> {entry: (sys, qp, act, max |err|)}."""
@@ -2162,6 +2378,8 @@ def main() -> None:
     launches[ppo_at] = phase_train(dev, card, "ppo")[0]
     launches[GRU_SAC_RANK] = phase_checkpoint(dev, card)  # 256 episodes
     lap("train:gru, train:ppo, checkpoint")
+    launches[ppo_at] += phase_surface(dev, card)
+    lap("surface: exports, ops, flatten_optimizer=False (phase 20)")
     trained, inference_fn, params = phase_train(dev, card, "ppo_halfcheetah")
     launches[f"halfcheetah,B={ppo.HALFCHEETAH.num_envs}"] = trained
     lap("train:ppo_halfcheetah")

@@ -20,3 +20,8 @@ Conventions:
 """
 
 __version__ = "0.1.0"
+
+from pobrax_tpu_torch import envs, io, models, ops, parallel, physics, training, utils
+
+__all__ = ["envs", "io", "models", "ops", "parallel", "physics", "training",
+           "utils", "__version__"]

@@ -22,8 +22,10 @@ and target_q stacked on a leading axis of 2, log_alpha, the policy, q and
 alpha Adam states, normalizer, epochs, and the replay buffer and PER table
 where present) — with flax's (in, out) kernels transposed into torch
 weights, the GRU's (r, z, n) gates stacked as `nn.GRUCell` stacks them, and
-Adam's flat moments re-sliced from JAX's leaf order into the port's
-parameter order; `training_state_to_numpy` is the inverse,
+Adam's moments (one flat vector under `optax.flatten`, parameter-shaped
+trees under the per-leaf chain of `flatten_optimizer=False`) re-sliced from
+JAX's leaf order into the port's flat vector in parameter order;
+`training_state_to_numpy` is the inverse,
 `shard_training_state` cuts a state into one rank's piece of a 'data' mesh,
 and `params_checksum` fingerprints a JAX parameter tree.
 
@@ -309,14 +311,33 @@ def flat_from_numpy(params: torch.nn.Module, flat: np.ndarray) -> torch.Tensor:
                            device=device)
 
 
-def flat_to_numpy(params: torch.nn.Module, flat: torch.Tensor) -> np.ndarray:
-    """The port's flat vector -> the JAX flat vector (leaf order)."""
+def _flat_leaves(params: torch.nn.Module, flat: torch.Tensor) -> Dict[Tuple, np.ndarray]:
+    """The port's flat vector -> flax leaves by path (sorted)."""
     named = list(params.named_parameters())
     values = np.split(flat.detach().cpu().numpy(),
                       np.cumsum([p.numel() for _, p in named])[:-1])
-    arrays = {n: v.reshape(p.shape) for (n, p), v in zip(named, values)}
-    leaves = _flax_leaves(params, arrays)
+    return _flax_leaves(params, {n: v.reshape(p.shape) for (n, p), v in zip(named, values)})
+
+
+def flat_to_numpy(params: torch.nn.Module, flat: torch.Tensor) -> np.ndarray:
+    """The port's flat vector -> the JAX flat vector (leaf order)."""
+    leaves = _flat_leaves(params, flat)
     return np.concatenate([leaves[p[0]].reshape(-1) for p in _pieces(params)])
+
+
+def tree_from_numpy(params: torch.nn.Module, tree) -> torch.Tensor:
+    """A parameter-shaped JAX tree (Adam's mu or nu under the per-leaf
+    chain) -> the port's flat vector in `parameters()` order."""
+    tree = _as_tree(tree)
+    arrays = _port_arrays(params, {p[0]: _leaf(tree, p[0]) for p in _pieces(params)})
+    return torch.as_tensor(np.concatenate([arrays[n].reshape(-1)
+                                           for n, _ in params.named_parameters()]),
+                           device=next(params.parameters()).device)
+
+
+def tree_to_numpy(params: torch.nn.Module, flat: torch.Tensor) -> Dict[str, Any]:
+    """The port's flat vector -> the parameter-shaped JAX tree."""
+    return _nest(_flat_leaves(params, flat))
 
 
 def _find_adam(x):
@@ -340,34 +361,43 @@ def _maybe(obj, name):
     return getattr(obj, name, None)
 
 
-def _flat_in(module: torch.nn.Module, flat) -> torch.Tensor:
+def _flat_in(module: torch.nn.Module, moment) -> torch.Tensor:
+    """A JAX moment -> the port's flat vector: one flat vector (optax.flatten)
+    or a parameter-shaped tree (the per-leaf chain)."""
     from pobrax_tpu_torch.training.sac import Scalar
 
     if isinstance(module, Scalar):  # optax.adam on a scalar: () moments
-        return torch.as_tensor(np.array(flat, np.float32).reshape(1),
+        return torch.as_tensor(np.array(moment, np.float32).reshape(1),
                                device=module.value.device)
-    return flat_from_numpy(module, flat)
+    if isinstance(moment, dict) or dataclasses.is_dataclass(moment):
+        return tree_from_numpy(module, moment)
+    return flat_from_numpy(module, moment)
 
 
-def _flat_out(module: torch.nn.Module, flat: torch.Tensor) -> np.ndarray:
+def _flat_out(module: torch.nn.Module, flat: torch.Tensor, per_leaf: bool):
     from pobrax_tpu_torch.training.sac import Scalar
 
     if isinstance(module, Scalar):
         return flat.detach().cpu().numpy().reshape(())
-    return flat_to_numpy(module, flat)
+    return tree_to_numpy(module, flat) if per_leaf else flat_to_numpy(module, flat)
 
 
-def _adam_from_numpy(module: torch.nn.Module, opt_state):
+def _adam_from_numpy(module: torch.nn.Module, opt_state, per_leaf: bool = False):
+    """JAX's Adam state (either layout) -> the port's; `per_leaf` (the
+    learner's own, from its `init`) is the layout it is written back in."""
     from pobrax_tpu_torch.training.optimizer import AdamState
 
     adam = _find_adam(opt_state)
     return AdamState(count=int(np.asarray(_get(adam, "count"))),
-                     mu=_flat_in(module, _get(adam, "mu")), nu=_flat_in(module, _get(adam, "nu")))
+                     mu=_flat_in(module, _get(adam, "mu")), nu=_flat_in(module, _get(adam, "nu")),
+                     per_leaf=per_leaf)
 
 
-def _adam_to_numpy(module: torch.nn.Module, adam) -> Dict[str, np.ndarray]:
-    return {"count": np.int32(adam.count), "mu": _flat_out(module, adam.mu),
-            "nu": _flat_out(module, adam.nu)}
+def _adam_to_numpy(module: torch.nn.Module, adam) -> Dict[str, Any]:
+    """The port's Adam state -> JAX's: flat moments, or parameter-shaped
+    trees where the state runs the per-leaf chain."""
+    return {"count": np.int32(adam.count), "mu": _flat_out(module, adam.mu, adam.per_leaf),
+            "nu": _flat_out(module, adam.nu, adam.per_leaf)}
 
 
 def _off_policy(ts) -> bool:
@@ -407,7 +437,8 @@ def training_state_from_numpy(state: Any, learner, key: Optional[torch.Tensor] =
         if pri is not None and np.size(pri):
             ts.priorities = torch.as_tensor(np.array(pri, np.float32), device=dev)
     elif _find_adam(_get(state, "opt_state")) is not None:
-        ts.opt_state = _adam_from_numpy(ts.params, _get(state, "opt_state"))
+        ts.opt_state = _adam_from_numpy(ts.params, _get(state, "opt_state"),
+                                        ts.opt_state.per_leaf)
     norm = _get(state, "normalizer")
     ts.normalizer = RunningStatisticsState(**{
         f.name: torch.as_tensor(np.array(_get(norm, f.name), np.float32), device=dev)
@@ -448,7 +479,8 @@ def shard_training_state(state: Any, rank: int, n: int) -> Dict[str, Any]:
 
 def training_state_to_numpy(ts) -> Dict[str, Any]:
     """The port's training state -> numpy in the JAX learner's layout: PPO's
-    {"params", "opt_state": {"count", "mu", "nu"}, "normalizer", "epochs"};
+    {"params", "opt_state": {"count", "mu", "nu"}, "normalizer", "epochs"},
+    mu and nu flat, or parameter-shaped trees under the per-leaf chain;
     SAC's {"params": {policy, q, target_q, log_alpha}, "policy_opt",
     "q_opt", "alpha_opt" (each {"count", "mu", "nu"}), "normalizer",
     "epochs", "buffer": {"data", "insert_pos", "size"}} and "priorities"

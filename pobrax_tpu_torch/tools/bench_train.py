@@ -14,9 +14,9 @@ Each runs one warm-up call (kernel build, allocations: the record's
 epochs, each call closed by reading its losses (which waits for the card).
 Env-steps a call = unroll x envs x action_repeat x epochs, as JAX counts them.
 
-The port has one optimizer, the flat Adam of `training/optimizer.py` (the
-JAX tool's `flatten_optimizer=True`); TRAIN_FLATTEN=0 asks for the other,
-which does not exist here, so it raises.
+TRAIN_FLATTEN=0 passes `flatten_optimizer=False` to PPO, as the JAX tool
+does: the same update, with the Adam state in optax's per-leaf layout
+(`training/optimizer.py`).
 
 Usage: python -m pobrax_tpu_torch.tools.bench_train [env_name]
 Env overrides, as the JAX tool's: TRAIN_BATCH, TRAIN_UNROLL, TRAIN_MB,
@@ -50,10 +50,11 @@ DEFAULT_OUT = run_path("trainbench_torch.json")
 
 def ppo_config(batch: int = 4096, unroll: int = 16, minibatches: int = 32,
                update_epochs: int = 4, dtype: str = "bfloat16",
-               epochs_per_call: int = 1) -> ppo.PPOConfig:
+               epochs_per_call: int = 1, flatten: bool = True) -> ppo.PPOConfig:
     return ppo.PPOConfig(num_envs=batch, episode_length=1000, unroll_length=unroll,
                          num_minibatches=minibatches, num_update_epochs=update_epochs,
-                         network_dtype=dtype, epochs_per_call=epochs_per_call)
+                         network_dtype=dtype, flatten_optimizer=flatten,
+                         epochs_per_call=epochs_per_call)
 
 
 def rnn_config(batch: int = 2048, unroll: int = 32, minibatches: int = 8, update_epochs: int = 4,
@@ -118,15 +119,11 @@ def bench_train(env_name: str = "ant_tag", batch: int = 4096, unroll: int = 16,
                 dtype: str = "bfloat16", repeats: int = 3, flatten: bool = True,
                 epochs_per_call: int = 1, device=None, substeps: Optional[int] = None) -> dict:
     """PPO's epochs at the JAX tool's recorded config -> its record."""
-    if not flatten:
-        raise ValueError("TRAIN_FLATTEN=0 asks for optax's per-leaf Adam; the port has only "
-                         "the flat Adam of training/optimizer.py (flatten_optimizer=True), so "
-                         "it would silently measure the flat one")
     dev = resolve(device)
     if substeps is None:
         substeps = int(os.environ.get("TRAIN_SUBSTEPS", "0"))
     epc = max(1, epochs_per_call)
-    cfg = ppo_config(batch, unroll, minibatches, update_epochs, dtype, epc)
+    cfg = ppo_config(batch, unroll, minibatches, update_epochs, dtype, epc, flatten)
     wrapped = ppo.wrap_for_training(_core(env_name, dev, substeps), cfg, autoreset)
     learner = ppo.PPOLearner(wrapped, cfg)
     key, k_init, k_reset = jr.split(jr.PRNGKey(0, dev), 3).unbind(-2)

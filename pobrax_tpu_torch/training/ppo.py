@@ -156,6 +156,10 @@ class PPOConfig:
     normalize_observations: bool = True
     normalize_advantages: bool = True
     max_grad_norm: Optional[float] = 0.5
+    # True: optax.flatten's one flat vector; False: optax's per-leaf chain.
+    # The update is the same (training/optimizer.py); only the Adam state's
+    # layout on the JAX side differs (interop)
+    flatten_optimizer: bool = True
     policy_hidden: Tuple[int, ...] = (32, 32, 32, 32)
     value_hidden: Tuple[int, ...] = (256, 256, 256, 256, 256)
     # None: one permutation of the rollout; D: a permutation within each of
@@ -232,7 +236,8 @@ class LearnerBase:
         self.action_size = env.action_size
         self.obs_size = env.observation_size
         self.dist = NormalTanhDistribution(event_size=self.action_size)
-        self.optimizer = Optimizer(cfg.learning_rate, cfg.max_grad_norm)
+        self.optimizer = Optimizer(cfg.learning_rate, cfg.max_grad_norm,
+                                   per_leaf=not cfg.flatten_optimizer)
         self.clock = _PhaseClock(self.device)
 
     @property

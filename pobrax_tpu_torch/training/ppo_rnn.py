@@ -118,6 +118,7 @@ class RNNPPOConfig:
     normalize_observations: bool = True
     normalize_advantages: bool = True
     max_grad_norm: Optional[float] = 0.5
+    flatten_optimizer: bool = True  # JAX's Adam state layout (see ppo.py)
     encoder_sizes: Tuple[int, ...] = (256,)
     hidden_size: int = 128
     epochs_per_call: int = 1

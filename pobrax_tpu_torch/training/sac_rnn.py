@@ -175,8 +175,9 @@ class RSACConfig:
     head_sizes: Tuple[int, ...] = (128,)
 
 
-# examples/train_ant_tag_sac_rnn.py's recipe (phase 0, radius 20); the
-# example trains a potential-shaped AntTag, which is not ported
+# examples/train_ant_tag_sac_rnn.py's recipe (phase 0, radius 20) on the
+# unshaped AntTag; the example trains the potential-shaped one,
+# examples/train_ant_tag.py's `ShapedAntTag`
 ANT_TAG = RSACConfig(num_envs=512, episode_length=1000, action_repeat=6, seq_len=32, burn_in=8,
                      replay_capacity=192, batch_size=128, seqs_per_epoch=4,
                      grad_steps_per_seq=2, min_replay=24, learning_rate=3e-4,

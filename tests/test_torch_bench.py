@@ -12,7 +12,8 @@
   * `bench_train`'s three programs and `bench_scaling`'s three learners
     build their configs field for field as the JAX tools do (recorded from
     the tools themselves: the learner's constructor is replaced by a
-    recorder in both packages), `TRAIN_FLATTEN=0` raises;
+    recorder in both packages), `flatten` (TRAIN_FLATTEN) passed through to
+    PPO's `flatten_optimizer` for both values;
   * `bench_scaling` over two gloo ranks on the CPU in strong mode (a
     jax-free worker): the per-size lines and the summary.
 """
@@ -132,9 +133,7 @@ def _config(fn, *args, **kwargs):
 
 
 def _same_fields(port_cfg, jax_cfg):
-    want = dataclasses.asdict(jax_cfg)
-    assert want.pop("flatten_optimizer", True) is True  # the port's only optimizer
-    assert dataclasses.asdict(port_cfg) == want
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
 
 
 def test_bench_train_configs_equal_the_jax_tools(monkeypatch):
@@ -150,8 +149,10 @@ def test_bench_train_configs_equal_the_jax_tools(monkeypatch):
     _same_fields(_config(bench_train.bench_train_sac_rnn, device="cpu"),
                  _config(jbench_train.bench_train_sac_rnn))
     assert _config(bench_train.bench_train, device="cpu") == bench_train.ppo_config()
-    with pytest.raises(ValueError, match="flat Adam"):
-        bench_train.bench_train(flatten=False, device="cpu")
+    for flatten in (True, False):
+        got = _config(bench_train.bench_train, flatten=flatten, device="cpu")
+        assert got.flatten_optimizer is flatten
+        _same_fields(got, _config(jbench_train.bench_train, flatten=flatten))
 
 
 def test_bench_scaling_configs_equal_the_jax_tool(monkeypatch):
