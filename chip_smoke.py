@@ -64,8 +64,9 @@ them. Imports no jax and nothing of
      the plain version's time per control step at 4096 envs (`ant` at SAC's
      128, then 4096; the learners' System at each batch of LEARNER_BATCHES,
      an entry each; halfcheetah at 4096, 1024 and 1, an entry each; the
-     examples' pairs of phase 18) (CUDA events over
-     back-to-back launches, after 0.2 s of warm-up), the kernel's device time
+     examples' pairs of phase 18) (CUDA events: the kernel over
+     back-to-back launches after 0.2 s of warm-up, the plain step over one
+     call), the kernel's device time
      (launches queued behind a sleep kernel, so they run back to back: the
      two differ where the wrapper's host work per launch outlasts the
      kernel, on the small Systems), and the bound; the timing helpers are
@@ -166,8 +167,10 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      each boundary, epochs saved 1, 2, 3, 32 launches an epoch, finite
      losses, moved parameters), then its true-env tag rates on 256 episodes,
      det and stoch, reported; (b) `eval_checkpoint.main` of the gather (800M
-     and bombmem02 1B) and maze checkpoints: checksums, the maze's det goal
-     rate gated at 0.95, gather's apples and net gated at REPLAY_GATES; (c)
+     and bombmem02 1B) and maze checkpoints and the port-trained HeavenHell
+     one: checksums, the maze's det goal rate gated at 0.95, gather's apples
+     and net and HeavenHell's completion and heaven rates (det seed 0, stoch
+     seed 1) gated at REPLAY_GATES; (c)
      `train_ant_gather_rnn.main_curriculum` at the bombmem02 recipe (sensor
      14 -> 6 -> 6, novelty 0.25, 0.25, 0, bomb memory 0.2), one call of 8
      epochs a phase, and its gather_eval; (d) `train_ant_maze_rnn.main`: the
@@ -185,16 +188,18 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      pendulum (1024) and GRU-SAC on it (64), with their evaluators at 256
      episodes; (h) `visualize.main("ant_tag", 300)` and
      `rollout_demo.native_path` (16 envs, NATIVE_DEMO_STEPS steps, twice).
-     The steps run in three spawned processes at once (EXAMPLE_PARTS), each
-     with its own counts. Every train is watched: one launch a control step,
+     The steps run in three spawned processes (EXAMPLE_PARTS), each with
+     its own counts, started with phase 19's after the build (phase 2) and
+     run beside phases 3-4; the parent waits for all four before phase 5. Every train is watched: one launch a control step,
      finite losses, each core env rescaled by ActionRepeat once. Every
      launch is counted under the entry of its (substeps, batch), and a
      launch at a pair that no entry compares fails. Each of (a)-(h) prints
      its wall time, its trained env-steps as JAX counts them and its
      launches, and a `[clock]` line.
  19. the benches and measuring tools (`pobrax_tpu_torch.bench`,
-     `bench_scaling` and `tools/`), each through its entry point, alone on
-     the card after the examples' processes have ended: first the kernel
+     `bench_scaling` and `tools/`), each through its entry point, in a
+     fourth spawned process beside the examples' three: first, in the
+     parent's phase 3, the kernel
      against the plain step on each (System, batch) they add (the ablations'
      AntTag without walls, without contacts and at one substep, AntTag at 8
      substeps, the substeps probe's reference and its 8-substep candidate at
@@ -244,6 +249,7 @@ import json
 import multiprocessing
 import os
 import re
+import signal
 import sys
 import tempfile
 import time
@@ -396,30 +402,45 @@ GRU_ENVS, SAC_ENVS, MASKED_ANT_ENVS = ppo_rnn.ANT_TAG.num_envs, sac_rnn.ANT_TAG.
 CARRY_FRAC = 0.25
 NATIVE_DEMO_STEPS = 20
 SHAPING_STEPS = 10  # timed control steps of each side of a shaping pair
-# the examples phase's steps, run in three processes at once (EXAMPLE_PARTS):
-# every step is host-bound, its device idle most of the time. On an H100
-# host where one after another they took 590 s of a 1051 s script, each part
-# takes ~200 s
+# the examples phase's steps, run in three processes (EXAMPLE_PARTS), and the
+# benches and tools in a fourth (TOOLS_PART): every step is host-bound, its
+# device idle most of the time. On an H100 host where one after another the
+# examples took 590 s of a 1051 s script, each of their parts takes ~200 s,
+# and the tools ~150 s. So the four start as soon as the kernel is built and
+# run beside the parent's comparisons of phases 3 and 4 (~220 s, host-bound
+# too, and timing nothing); the parent waits for them before the main paths
+# of phase 5, so that phases 5-17 and the times run with the card to
+# itself. The rates the parts print are taken beside the other processes
 EXAMPLE_STEPS = ("shaping", "a", "b", "c", "d", "e", "f", "g", "h")
 EXAMPLE_PARTS = (("shaping", "a", "b", "c"), ("d", "e", "g"), ("f", "h"))
-# the committed checkpoints' replays on 256 episodes. The maze's det goal
-# rate: JAX recorded 0.9961 (docs/learning_ant_maze_rnn.json). Gather: each
-# gate is the lowest of the JAX package's own values over reset seeds 0-4
-# (tools/eval_gather_checkpoint_seeds.py, on the CPU) less 0.5, about three
-# standard deviations of that spread, rounded down to 0.1
+TOOLS_PART = ("tools",)
+BACKGROUND_PARTS = (*EXAMPLE_PARTS, TOOLS_PART)
 # phase 20: the subpackages `import pobrax_tpu_torch` must reach (the JAX
 # package's), the ops inputs' batch, and CUDA against the CPU for the ops
 SURFACE_SUBPACKAGES = ("envs", "io", "models", "ops", "parallel", "physics", "training", "utils")
 OPS_N = 4096
 OPS_RTOL = OPS_ATOL = 1e-6
+# the committed checkpoints' replays on 256 episodes. The maze's det goal
+# rate: JAX recorded 0.9961 (docs/learning_ant_maze_rnn.json). Gather: each
+# gate is the lowest of the JAX package's own values over reset seeds 0-4
+# (tools/eval_gather_checkpoint_seeds.py, on the CPU) less 0.5, about three
+# standard deviations of that spread, rounded down to 0.1. HeavenHell (the
+# policy the port trained): its training run's evaluation read 1.000 for all
+# four rates on the H100 (pobrax_tpu_torch/docs/learning_heavenhell_rnn.json,
+# det seed 0, stoch seed 1, as the replay runs them); 256 of 256 bounds each
+# rate only by the rule of three, p >= 0.988, at which 256 episodes miss 3.1
+# +- 1.7; each gate is the maze's 0.95 (12 misses), over 5 such spreads away
 REPLAY_GATES = {
     "gather": {"det_apples": 5.3, "det_net": 2.1, "stoch_apples": 5.7, "stoch_net": 2.0},
     "gather_bombmem": {"det_apples": 4.5, "det_net": 1.7, "stoch_apples": 6.0, "stoch_net": 2.2},
-    "maze": {"det_goal_rate": 0.95}}
+    "maze": {"det_goal_rate": 0.95},
+    "heavenhell": {"det_completion": 0.95, "det_heaven": 0.95, "stoch_completion": 0.95,
+                   "stoch_heaven": 0.95}}
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    stop_parts()
     sys.exit(1)
 
 
@@ -1801,9 +1822,13 @@ def phase_examples(dev, card: str, tmp: str, lap, which=EXAMPLE_STEPS) -> dict:
     return launches
 
 
-def _examples_part(which, tmp: str, out: str) -> None:
-    """One process of the examples phase: the steps `which` on the card, in
-    `tmp`; writes the whole-step launches of each entry to `out` (JSON)."""
+def _part(which, tmp: str, out: str) -> None:
+    """One background process: the examples' steps `which` (phase 18), or
+    with TOOLS_PART the benches and tools (phase 19), on the card, in `tmp`;
+    writes the whole-step launches of each entry to `out` (JSON)."""
+    # a terminated part exits through its atexit handlers, which stop the
+    # ranks bench_scaling spawns
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
     dev = torch.device("cuda")
     t0 = last = time.perf_counter()
     part = "+".join(which)
@@ -1815,51 +1840,72 @@ def _examples_part(which, tmp: str, out: str) -> None:
               flush=True)
         last = now
 
-    launches = phase_examples(dev, card_line(), tmp, lap, which)
+    if which == TOOLS_PART:
+        launches = phase_tools(dev, card_line(), tmp, lap)
+        print(f"[clock] benches and tools (phase 19): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    else:
+        launches = phase_examples(dev, card_line(), tmp, lap, which)
     with open(out, "w") as f:
         json.dump(launches, f)
 
 
-def phase_examples_parallel(tmp: str) -> dict:
-    """Runs each part of EXAMPLE_PARTS in a spawned process of its own, all at
-    once (the parent holds a CUDA context, and the kernel it built is loaded
-    from build/); if one fails the others are stopped and the phase fails.
-    -> the whole-step launches of each entry, summed over the parts."""
+_RUNNING = []  # (process, directory, which) of each background part started
+
+
+def start_parts(tmp: str) -> None:
+    """Starts each part of BACKGROUND_PARTS in a spawned process of its own
+    (the parent holds a CUDA context, and the kernel it built is loaded from
+    build/), each with its own counts and a directory under `tmp`."""
     ctx = multiprocessing.get_context("spawn")
-    procs = []
-    for i, which in enumerate(EXAMPLE_PARTS):
+    for i, which in enumerate(BACKGROUND_PARTS):
         part_dir = os.path.join(tmp, f"part{i}")
         os.makedirs(part_dir)
-        proc = ctx.Process(target=_examples_part,
+        proc = ctx.Process(target=_part,
                            args=(which, part_dir, os.path.join(part_dir, "launches.json")))
         proc.start()
-        procs.append((proc, part_dir))
-    try:
-        while any(proc.is_alive() for proc, _ in procs):
-            if any(proc.exitcode not in (None, 0) for proc, _ in procs):
-                break
-            time.sleep(1.0)
-    finally:
-        for proc, _ in procs:
-            if proc.is_alive():
-                proc.terminate()
-        for proc, _ in procs:
-            proc.join()
-    failed = [which for (proc, _), which in zip(procs, EXAMPLE_PARTS) if proc.exitcode != 0]
+        _RUNNING.append((proc, part_dir, which))
+
+
+def check_parts() -> None:
+    """Fails (stopping the other parts) once a background part has failed."""
+    failed = [(which, proc.exitcode) for proc, _, which in _RUNNING
+              if proc.exitcode not in (None, 0)]
     if failed:
-        fail(f"the examples' parts {failed} failed (exit codes "
-             f"{[proc.exitcode for proc, _ in procs]})")
+        fail(f"background parts failed (part, exit code): {failed}")
+
+
+def stop_parts() -> None:
+    """Terminates the background parts still running and waits for each."""
+    for proc, _, _ in _RUNNING:
+        if proc.is_alive():
+            proc.terminate()
+    for proc, _, _ in _RUNNING:
+        proc.join()
+
+
+def join_parts() -> dict:
+    """Waits for every background part; fails if one failed. -> the
+    whole-step launches of each entry, summed over the parts."""
+    while any(proc.is_alive() for proc, _, _ in _RUNNING):
+        check_parts()
+        time.sleep(1.0)
+    for proc, _, _ in _RUNNING:
+        proc.join()
+    check_parts()
     launches = {}
-    for _, part_dir in procs:
+    for _, part_dir, _ in _RUNNING:
         with open(os.path.join(part_dir, "launches.json")) as f:
             for key, n in json.load(f).items():
                 launches[key] = launches.get(key, 0) + n
+    _RUNNING.clear()
     return launches
 
 
 # phase 19: the benches and the measuring tools, each through its entry
-# point, alone on the card. Depth cut to hold the phase near 150 s (every
-# path, comparison and count runs): bench.py's naive mode 200 -> 10 steps,
+# point, in a process of its own beside the examples' (BACKGROUND_PARTS).
+# Depth cut to hold the phase near 150 s (every path, comparison and count
+# runs): bench.py's naive mode 200 -> 10 steps,
 # the training benches one timed call (3), the scaling sweep 4 steps and one
 # timed call, bench_substeps 25 steps (200), ablate_bench 1 step (200),
 # roofline 50 steps (200), overlap_study 500 launches / 300 matmul steps
@@ -2310,11 +2356,16 @@ def main() -> None:
         print(f"[clock] {label}: {now - last:.1f} s; {now - t0:.1f} s since the start",
               flush=True)
         last = now
+        check_parts()
 
     warps = phase_build(dev)
     for batch in HALFCHEETAH_BATCHES:
         warps[f"halfcheetah,B={batch}"] = warps["halfcheetah"]
     lap("build")
+    parts_tmp = tempfile.TemporaryDirectory()
+    start_parts(parts_tmp.name)
+    print(f"[parts] {len(BACKGROUND_PARTS)} processes started: the examples' parts "
+          f"{['+'.join(w) for w in EXAMPLE_PARTS]} and the benches and tools", flush=True)
     compared = {"ant_tag": phase_kernel_vs_plain(dev)}
     lap("kernel-vs-plain:ant_tag")
     for name in STOCK_WARM_STEPS:
@@ -2356,6 +2407,9 @@ def main() -> None:
     for path in FIXTURES:
         phase_fixture(dev, path)
         lap(f"fixture:{os.path.basename(path)}")
+    part_launches = join_parts()
+    parts_tmp.cleanup()
+    lap(f"waiting for the examples and the tools ({len(BACKGROUND_PARTS)} processes)")
     launches = {"ant_tag": phase_main(dev, "ant_tag", "cached", card)}
     phase_main(dev, "ant_tag", "naive", card, steps=NAIVE_STEPS)
     for name in MASKED_MAIN:
@@ -2406,16 +2460,8 @@ def main() -> None:
     lap("mesh: graft entry, dryrun_multichip (2 ranks, gloo)")
     phase_nccl(dev, card)
     lap("mesh: one-rank nccl")
-    with tempfile.TemporaryDirectory() as tmp:
-        for key, n in phase_examples_parallel(tmp).items():
-            launches[key] = launches.get(key, 0) + n
-    lap(f"examples, {len(EXAMPLE_PARTS)} processes at once")
-    t_tools = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        for key, n in phase_tools(dev, card, tmp, lap).items():
-            launches[key] = launches.get(key, 0) + n
-    print(f"[clock] benches and tools (phase 19): {time.perf_counter() - t_tools:.1f} s",
-          flush=True)
+    for key, n in part_launches.items():
+        launches[key] = launches.get(key, 0) + n
 
     entries = []
     cases = [(name, case, True) for name, case in compared.items()]
@@ -2423,7 +2469,9 @@ def main() -> None:
                                                            for n, c in timed_only.items()]:
         kernel_ms = cuda_ms(lambda: whole_step.launch(sys_, qp, act), reps=50)
         kernel_dev_ms = device_ms(lambda: whole_step.launch(sys_, qp, act))
-        plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=2)
+        # the plain step is host-bound (tens to hundreds of ms): one call,
+        # the comparison before having run it at this System and batch
+        plain_ms = cuda_ms(lambda: sys_.step_generic(qp, act), reps=1, warm_s=0.0)
         batch = qp.pos.shape[0]
         bound, bound_by = whole_step.bound_ms(sys_, batch)
         print(f"[times:{name}] one control step at B={batch}: kernel {kernel_ms:.4f} ms per launch "
@@ -2448,4 +2496,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_parts()

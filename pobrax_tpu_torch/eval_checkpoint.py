@@ -1,20 +1,26 @@
-"""Replay a committed AntGather or AntMaze GRU-PPO checkpoint with the port.
+"""Replay a committed AntGather, AntMaze or AntHeavenHell GRU-PPO checkpoint
+with the port.
 
 Loads the numpy export (`tools/export_torch_checkpoint.py`) of
 checkpoints/ant_gather_rnn_800M (`--gather`), ant_gather_rnn_bombmem02_1B
-(`--gather-bombmem`) or ant_maze_rnn_400M (`--maze`), checks the loaded
+(`--gather-bombmem`) or ant_maze_rnn_400M (`--maze`), or the policy the port
+itself trained at examples/train_heavenhell_rnn.py's recipe
+(ant_heavenhell_rnn_400M, `--heavenhell`, written by
+`pobrax_tpu_torch.tools.export_run_checkpoint`), checks the loaded
 parameters against the checksum stored beside them, and reports the
 example's own evaluator on 256 episodes under ActionRepeat(6) ->
-Episode(1000) -> Vmap, deterministic and stochastic, both at reset seed 0 as
-the JAX examples evaluate them: `gather_eval` of
-examples/train_ant_gather_rnn.py (apples and bombs per episode), or
-`goal_rate_rnn` of examples/train_ant_maze_rnn.py. `--seeds S ...` runs
-both at each seed instead (tools/eval_gather_checkpoint_seeds.py is the JAX
-package's column). `--html OUT` also writes the deterministic episode of
-tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
-(300 frames).
+Episode(1000) -> Vmap, deterministic and stochastic, as the examples
+evaluate them: `gather_eval` of examples/train_ant_gather_rnn.py (apples and
+bombs per episode) or `goal_rate_rnn` of examples/train_ant_maze_rnn.py, both
+at reset seed 0, or `outcome_rates` of examples/train_heavenhell_rnn.py
+(completion and heaven rates), det at seed 0 and stoch at seed 1. `--seeds S
+...` runs both at each seed instead (tools/eval_gather_checkpoint_seeds.py is
+the JAX package's column). `--html OUT` also writes the deterministic episode
+of tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
+(300 frames); the JAX package has no HeavenHell renderer, so `--heavenhell`
+takes no `--html`.
 
-Usage: python -m pobrax_tpu_torch.eval_checkpoint --gather|--gather-bombmem|--maze
+Usage: python -m pobrax_tpu_torch.eval_checkpoint --gather|--gather-bombmem|--maze|--heavenhell
        [--device cpu] [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
 (the card unless a device is named)
 """
@@ -35,28 +41,36 @@ from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs, wrappers
 from pobrax_tpu_torch.examples._common import make_parent, split2
 from pobrax_tpu_torch.examples.train_ant_gather_rnn import HIDDEN, gather_eval
 from pobrax_tpu_torch.examples.train_ant_maze_rnn import goal_rate_rnn
+from pobrax_tpu_torch.examples.train_heavenhell_rnn import gru_policy, outcome_rates
 from pobrax_tpu_torch.io import html
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import ppo_rnn
 
 _DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
-# name -> (env, npz, frames of the rendered episode)
-CHECKPOINTS = {"gather": ("ant_gather", "ant_gather_rnn_800M.npz", 500),
-               "gather_bombmem": ("ant_gather", "ant_gather_rnn_bombmem02_1B.npz", 500),
-               "maze": ("ant_maze", "ant_maze_rnn_400M.npz", 300)}
+# name -> (env, npz, frames of the rendered episode (None: no renderer),
+#          reset seeds of the det and stoch evaluations, as the example's main)
+CHECKPOINTS = {"gather": ("ant_gather", "ant_gather_rnn_800M.npz", 500, (0, 0)),
+               "gather_bombmem": ("ant_gather", "ant_gather_rnn_bombmem02_1B.npz", 500, (0, 0)),
+               "maze": ("ant_maze", "ant_maze_rnn_400M.npz", 300, (0, 0)),
+               "heavenhell": ("ant_heavenhell", "ant_heavenhell_rnn_400M.npz", None, (0, 1))}
 
 
 def npz_path(name: str) -> str:
     return os.path.join(_DIR, CHECKPOINTS[name][1])
 
 
+def learner_for(name: str, device=None) -> ppo_rnn.RNNPPOLearner:
+    """An RNNPPOLearner at the examples' widths (hidden 128, encoder (256,))
+    on `name`'s env."""
+    return ppo_rnn.RNNPPOLearner(_envs[CHECKPOINTS[name][0]](device=resolve(device)),
+                                 ppo_rnn.ANT_TAG)
+
+
 def load(name: str, device=None, npz: Optional[str] = None):
-    """-> (learner, training state, checksum matches): an RNNPPOLearner at
-    the examples' widths (hidden 128, encoder (256,)) for the checkpoint's
-    env, with its state loaded on `device` from `npz` (the committed export
-    of `name` unless given)."""
-    env = _envs[CHECKPOINTS[name][0]](device=resolve(device))
-    learner = ppo_rnn.RNNPPOLearner(env, ppo_rnn.ANT_TAG)
+    """-> (learner, training state, checksum matches): `learner_for(name)`
+    with its state loaded on `device` from `npz` (the committed export of
+    `name` unless given)."""
+    learner = learner_for(name, device)
     tree = ckpt.load_npz(npz or npz_path(name))
     ts = interop.training_state_from_numpy(tree, learner)
     same = interop.params_checksum(interop.params_to_numpy(ts.params)) == tree["params_sha256"]
@@ -67,23 +81,30 @@ def evaluate(name: str, learner, ts, episodes: int = 256,
              seeds: Optional[Sequence[int]] = None,
              modes: Sequence[str] = ("det", "stoch")) -> dict:
     """The example's evaluator, det and stoch (or the `modes` named), at
-    seed 0 (or at each of `seeds`): {"det_apples": .., "det_bombs": ..,
-    "det_net": .., ...} or {"det_goal_rate": .., ...} (keys suffixed
-    _s<seed> with `seeds`)."""
+    the checkpoint's reset seeds (`CHECKPOINTS`) or at each of `seeds`:
+    {"det_apples": .., "det_bombs": .., "det_net": .., ...},
+    {"det_goal_rate": .., ...} or {"det_completion": .., "det_heaven": ..,
+    ...} (keys suffixed _s<seed> with `seeds`)."""
     inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
-    env_name = CHECKPOINTS[name][0]
+    env_name, _, _, (det_seed, stoch_seed) = CHECKPOINTS[name]
     out = {}
-    for seed in ([0] if seeds is None else seeds):
+    for seed in ([None] if seeds is None else seeds):
         suffix = "" if seeds is None else f"_s{seed}"
         for mode in modes:
             det = mode == "det"
             core = _envs[env_name](device=learner.device)
-            if env_name == "ant_maze":
+            at = (det_seed if det else stoch_seed) if seed is None else seed
+            if env_name == "ant_heavenhell":
+                c, h = outcome_rates(core, **gru_policy(inference_fn, params, HIDDEN,
+                                                        learner.device, det),
+                                     episodes=episodes, seed=at, action_repeat=HAI_ACTION_REPEAT)
+                out.update({f"{mode}_completion{suffix}": c, f"{mode}_heaven{suffix}": h})
+            elif env_name == "ant_maze":
                 out[f"{mode}_goal_rate{suffix}"] = goal_rate_rnn(
-                    core, inference_fn, params, HIDDEN, episodes, seed=seed,
+                    core, inference_fn, params, HIDDEN, episodes, seed=at,
                     action_repeat=HAI_ACTION_REPEAT, deterministic=det)
             else:
-                a, b = gather_eval(core, (params, inference_fn, det), episodes, seed=seed,
+                a, b = gather_eval(core, (params, inference_fn, det), episodes, seed=at,
                                    action_repeat=HAI_ACTION_REPEAT, hidden_size=HIDDEN)
                 out.update({f"{mode}_apples{suffix}": a, f"{mode}_bombs{suffix}": b,
                             f"{mode}_net{suffix}": a - b})
@@ -96,7 +117,7 @@ def render(name: str, learner, ts, out: str, frames: Optional[int] = None) -> di
     render_maze_policy.py (reset key PRNGKey(1), action keys from
     PRNGKey(2)), `frames` control steps (500 / 300 unless given), saved by
     `html.save`; -> what it caught or reached."""
-    env_name, _, default_frames = CHECKPOINTS[name]
+    env_name, _, default_frames = CHECKPOINTS[name][:3]
     frames = frames or default_frames
     core = _envs[env_name](device=learner.device)
     env = wrappers.ActionRepeatWrapper(core, HAI_ACTION_REPEAT)
@@ -125,6 +146,8 @@ def render(name: str, learner, ts, out: str, frames: Optional[int] = None) -> di
 
 def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[int]] = None,
          html_out: Optional[str] = None, modes: Sequence[str] = ("det", "stoch")) -> dict:
+    if html_out and CHECKPOINTS[name][2] is None:
+        raise ValueError(f"{name}: the JAX package has no renderer for {CHECKPOINTS[name][0]}")
     learner, ts, same = load(name, device)
     if not same:
         raise RuntimeError(f"{npz_path(name)}: the loaded parameters do not match their "
@@ -140,7 +163,7 @@ def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[i
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = parser.add_mutually_exclusive_group(required=True)
-    for flag in ("--gather", "--gather-bombmem", "--maze"):
+    for flag in ("--gather", "--gather-bombmem", "--maze", "--heavenhell"):
         which.add_argument(flag, dest="name", action="store_const",
                            const=flag[2:].replace("-", "_"))
     parser.add_argument("--device", default=None)

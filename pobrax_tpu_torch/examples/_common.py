@@ -1,17 +1,20 @@
 """What the example modules share: the evaluators' env stack, key order and
-loop, uniform random actions, and where a run's record and checkpoints go."""
+loop, uniform random actions, where a run's record and checkpoints go, and
+the progress log of a run that resumes across calls."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Optional, Sequence
+import time
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import wrappers
 from pobrax_tpu_torch.envs.base import Env, State
+from pobrax_tpu_torch.training import checkpoint as ckpt
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # a run's records and checkpoints (gitignored); the JAX examples write docs/
@@ -80,14 +83,68 @@ def env_int(name: str, default: int, environ: Optional[dict] = None) -> int:
     return int((os.environ if environ is None else environ).get(name, str(default)))
 
 
-def split_options(argv):
-    """(argv without `--device D` / `--out P`, device or None, out or None):
-    the options every example's command line takes besides the JAX one's."""
-    rest, found = [], {"--device": None, "--out": None}
+def split_options(argv, *extra: str):
+    """(argv without `--device D` / `--out P` and the `extra` options, device
+    or None, out or None, then each `extra` option's value or None): the
+    options every example's command line takes besides the JAX one's, and
+    those of its own (e.g. "--checkpoint-dir")."""
+    names = ("--device", "--out") + extra
+    rest, found = [], dict.fromkeys(names)
     it = iter(argv)
     for a in it:
         if a in found:
             found[a] = next(it)
         else:
             rest.append(a)
-    return rest, found["--device"], found["--out"]
+    return (rest, *(found[n] for n in names))
+
+
+class ProgressLog:
+    """The progress of a run that resumes from `checkpoint_dir` across calls,
+    kept beside its step dirs in `progress.jsonl`: a line {"call": env-steps
+    resumed from, "card": ...} where a call starts training, then one
+    {"steps", "mean_reward", "t"} per progress report (`t`: seconds since the
+    call started training). Opening the log drops the reports past the latest
+    step dir: a cut call trains those epochs again."""
+
+    def __init__(self, checkpoint_dir: str, card: Optional[str]):
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        self.path = os.path.join(checkpoint_dir, "progress.jsonl")
+        latest = ckpt.latest_step_dir(checkpoint_dir)
+        resumed = int(os.path.basename(latest)[len("step_"):]) if latest else 0
+        lines = []
+        if os.path.exists(self.path):
+            with open(self.path) as f:
+                lines = [json.loads(line) for line in f if line.strip()]
+        lines = [e for e in lines if e.get("steps", 0) <= resumed]
+        lines.append({"call": resumed, "card": card})
+        self.lines = lines
+        with open(self.path, "w") as f:
+            f.writelines(json.dumps(e) + "\n" for e in lines)
+        self.t0 = time.perf_counter()
+
+    def __call__(self, steps: int, metrics: dict) -> None:
+        """A learner's `progress_fn`."""
+        entry = {"steps": steps, "mean_reward": metrics.get("mean_reward"),
+                 "t": time.perf_counter() - self.t0}
+        self.lines.append(entry)
+        with open(self.path, "a") as f:
+            f.write(json.dumps(entry) + "\n")
+
+    def curve(self) -> List[dict]:
+        """[{"steps", "mean_reward"}] of every call."""
+        return [{"steps": e["steps"], "mean_reward": e["mean_reward"]}
+                for e in self.lines if "steps" in e]
+
+    def calls(self) -> List[dict]:
+        """[{"from", "to", "train_s", "card"}]: the env-steps each call
+        trained that a later call kept, and its training's seconds up to its
+        last kept report; a call that kept none is left out."""
+        out = []
+        for e in self.lines:
+            if "call" in e:
+                out.append({"from": e["call"], "to": e["call"], "train_s": 0.0,
+                            "card": e["card"]})
+            else:
+                out[-1].update(to=e["steps"], train_s=e["t"])
+        return [c for c in out if c["to"] > c["from"]]

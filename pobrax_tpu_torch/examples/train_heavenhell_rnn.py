@@ -9,8 +9,15 @@ the completion rate and the heaven rate among completions. `HH_SUBSTEPS=8`
 trains on the retuned integrator (`Env.retune_substeps`) and also evaluates
 on the true 10-substep env.
 
+`--checkpoint-dir PATH` saves the training state there every 50M env-steps
+and at the end, as examples/train_ant_maze_rnn.py does; the same command run
+again resumes from the latest step dir (the envs reset and the epoch count is
+folded into the key, so a resumed run is not the uncut run's trajectory).
+The record then holds the curve of every call, `calls` (the env-steps each
+call trained, its training's seconds and the card), `wall_s` and `device`.
+
 Usage: python -m pobrax_tpu_torch.examples.train_heavenhell_rnn [num_timesteps] [num_envs]
-       [--device cpu] [--out PATH]
+       [--device cpu] [--out PATH] [--checkpoint-dir PATH]
 """
 
 from __future__ import annotations
@@ -22,9 +29,10 @@ import torch
 
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs
 from pobrax_tpu_torch.envs.base import Env, State, Wrapper
-from pobrax_tpu_torch.examples._common import (env_int, run_episodes, run_path, split_options,
-                                               uniform_actions, write_json)
+from pobrax_tpu_torch.examples._common import (ProgressLog, env_int, run_episodes, run_path,
+                                               split_options, uniform_actions, write_json)
 from pobrax_tpu_torch.training import ppo_rnn
+from pobrax_tpu_torch.utils.profiling import record_device
 
 HIDDEN = 128
 # examples/train_heavenhell_rnn.py's ppo_rnn.train arguments but the env,
@@ -33,6 +41,7 @@ RECIPE = dict(episode_length=1000, action_repeat=HAI_ACTION_REPEAT, unroll_lengt
               num_minibatches=8, num_update_epochs=4, learning_rate=3e-4, entropy_cost=3e-3,
               discounting=0.97, reward_scaling=1.0, hidden_size=HIDDEN, encoder_sizes=(256,),
               seed=0)
+CHECKPOINT_EVERY = 50_000_000  # examples/train_ant_maze_rnn.py's
 
 
 class ShapedHeavenHell(Wrapper):
@@ -106,7 +115,7 @@ def gru_policy(inference_fn, params, hidden: int, device, deterministic: bool = 
 
 
 def main(num_timesteps: int = 400_000_000, num_envs: int = 2048, device=None,
-         out: Optional[str] = None) -> dict:
+         out: Optional[str] = None, checkpoint_dir: Optional[str] = None) -> dict:
     substeps = substeps_knob()
     env = _envs["ant_heavenhell"](device=device)
     rand_c, rand_h = outcome_rates(_envs["ant_heavenhell"](device=device),
@@ -122,9 +131,21 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 2048, device=None,
             print(f"  {steps:>12,} steps  mean_reward={history[-1]['mean_reward']:+.4f}",
                   flush=True)
 
+    resumable = {}
+    if checkpoint_dir is not None:
+        card = record_device(env.device)["card"]
+        log = ProgressLog(checkpoint_dir, card)
+        history[:] = log.curve()
+
+        def logged(steps, metrics):
+            log(steps, metrics)
+            progress(steps, metrics)
+
+        resumable = dict(checkpoint_dir=checkpoint_dir, checkpoint_every=CHECKPOINT_EVERY)
     inference_fn, params, _ = ppo_rnn.train(
         ShapedHeavenHell(_hh(substeps, device), coef=5.0),
-        num_timesteps=num_timesteps, num_envs=num_envs, progress_fn=progress, **RECIPE)
+        num_timesteps=num_timesteps, num_envs=num_envs,
+        progress_fn=progress if checkpoint_dir is None else logged, **resumable, **RECIPE)
 
     det_c, det_h = outcome_rates(_hh(substeps, device),
                                  **gru_policy(inference_fn, params, HIDDEN, env.device, True),
@@ -138,6 +159,12 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 2048, device=None,
                "random": {"completion": rand_c, "heaven": rand_h},
                "gru_det": {"completion": det_c, "heaven": det_h},
                "gru_stoch": {"completion": sto_c, "heaven": sto_h}, "curve": history}
+    if checkpoint_dir is not None:
+        calls = log.calls()
+        payload.update(device=card or str(env.device), calls=calls,
+                       wall_s=sum(c["train_s"] for c in calls))
+        print(f"trained {num_timesteps:,} env-steps over {len(calls)} call(s) in "
+              f"{payload['wall_s']:.1f} s; {payload['device']}", flush=True)
     if substeps != 10:
         # transfer: the retuned-env policy evaluated on the true physics
         t_c, t_h = outcome_rates(_hh(10, device),
@@ -153,5 +180,5 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 2048, device=None,
 
 
 if __name__ == "__main__":
-    args, device, out = split_options(sys.argv[1:])
-    main(*[int(a) for a in args[:2]], device=device, out=out)
+    args, device, out, checkpoint_dir = split_options(sys.argv[1:], "--checkpoint-dir")
+    main(*[int(a) for a in args[:2]], device=device, out=out, checkpoint_dir=checkpoint_dir)

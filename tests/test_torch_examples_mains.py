@@ -56,6 +56,7 @@ from pobrax_tpu_torch.examples import (rollout_demo, train_ant_gather_rnn, train
                                        train_heavenhell_sac_rnn, train_masked_ant,
                                        train_masked_pendulum, train_ppo, train_sac,
                                        train_sac_rnn_pendulum, visualize)
+from pobrax_tpu_torch.examples._common import ProgressLog, split_options
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
 
@@ -380,3 +381,112 @@ def test_rollout_demo_paths():
                           "charts/mean_episodic_length"}
     out = rollout_demo.native_path("ant_tag", 4, 3, device="cpu")
     assert out["env_steps_per_s"] > 0 and np.isfinite(out["mean_reward"])
+
+
+def _pendulum_learners(monkeypatch, seen):
+    """`ppo.train` and `ppo_rnn.train` replaced by recorders that keep their
+    contract with a `checkpoint_dir`: resume from its latest step dir, report
+    each epoch after it to `progress_fn`, and save the last epoch's step dir
+    (holding only its epoch count); their policies are never called, as
+    `mean_length` is replaced too."""
+    per_epoch = 1024 * 32
+
+    def train(env, num_timesteps, checkpoint_dir, progress_fn, **kwargs):
+        seen.append(dict(kwargs, checkpoint_dir=checkpoint_dir, progress_fn=progress_fn))
+        latest = ckpt.latest_step_dir(checkpoint_dir)
+        resumed = int(os.path.basename(latest)[len("step_"):]) if latest else 0
+        epochs = -(-num_timesteps // per_epoch)
+        for e in range(resumed // per_epoch + 1, epochs + 1):
+            progress_fn(e * per_epoch, {"mean_reward": float(e)})
+        path = os.path.join(checkpoint_dir, f"step_{epochs * per_epoch:012d}")
+        os.makedirs(path)
+        torch.save({"epochs": epochs}, os.path.join(path, "state.pt"))
+        return None, "PARAMS", []
+
+    monkeypatch.setattr(ppo, "train", train)
+    monkeypatch.setattr(ppo_rnn, "train", train)
+    return per_epoch
+
+
+@pytest.mark.parametrize("example", ["heavenhell", "pendulum"])
+def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
+    """Each example run twice into one `checkpoint_dir`: the second call,
+    with a larger budget, resumes from the first's step dir and trains only
+    the rest; the record's `calls` say which call trained which env-steps.
+    HeavenHell trains for real at 16 envs, one epoch a call (its evaluators
+    at 4 episodes of 5 steps); the pendulum's learners are `_pendulum_learners`, and each of its
+    three arms gets its own subdirectory, `CHECKPOINT_EVERY` and
+    `ProgressLog` there."""
+    root = str(tmp_path / "ckpt")
+    if example == "heavenhell":
+        monkeypatch.setattr(train_heavenhell_rnn, "outcome_rates",
+                            functools.partial(train_heavenhell_rnn.outcome_rates, episodes=4,
+                                              episode_length=5))
+        per_epoch = 16 * 32 * 6
+        dirs = {"": root}
+        run = functools.partial(train_heavenhell_rnn.main, num_envs=16, device="cpu",
+                                checkpoint_dir=root)
+    else:
+        monkeypatch.setattr(train_masked_pendulum, "mean_length", lambda *a, **k: 3.0)
+        seen = []
+        per_epoch = _pendulum_learners(monkeypatch, seen)
+        dirs = {arm: os.path.join(root, arm) for arm in train_masked_pendulum.ARMS}
+        run = functools.partial(train_masked_pendulum.main, device="cpu", checkpoint_dir=root)
+    first, second = per_epoch, 2 * per_epoch
+
+    def step_dirs():
+        return {arm: sorted(d for d in os.listdir(path) if d.startswith("step_"))
+                for arm, path in dirs.items()}
+
+    one = run(first, out=str(tmp_path / "1.json"))
+    assert step_dirs() == {arm: [f"step_{first:012d}"] for arm in dirs}
+    two = run(first + 1, out=str(tmp_path / "2.json"))
+    assert step_dirs() == {arm: [f"step_{first:012d}", f"step_{second:012d}"] for arm in dirs}
+    for arm, path in dirs.items():
+        assert torch.load(os.path.join(path, f"step_{second:012d}", "state.pt"),
+                          weights_only=True)["epochs"] == second // per_epoch
+    calls = {"": two["calls"]} if example == "heavenhell" else two["calls"]
+    assert set(calls) == set(dirs)
+    for arm_calls in calls.values():
+        assert [(c["from"], c["to"], c["card"]) for c in arm_calls] == [(0, first, None),
+                                                                         (first, second, None)]
+        assert all(c["train_s"] > 0 for c in arm_calls)
+    if example == "heavenhell":
+        assert [e["steps"] for e in one["curve"]] == list(range(per_epoch, first + 1, per_epoch))
+        assert two["curve"][:1] == one["curve"]
+        assert [e["steps"] for e in two["curve"]] == list(range(per_epoch, second + 1, per_epoch))
+        assert two["wall_s"] == pytest.approx(sum(c["train_s"] for c in two["calls"]))
+        assert two["device"] == "cpu"
+    else:
+        assert [(kw["checkpoint_dir"], kw["checkpoint_every"]) for kw in seen] == 2 * [
+            (dirs[arm], train_masked_pendulum.CHECKPOINT_EVERY) for arm in dirs]
+        assert all(isinstance(kw["progress_fn"], ProgressLog)
+                   and kw["progress_fn"].path == os.path.join(kw["checkpoint_dir"],
+                                                              "progress.jsonl") for kw in seen)
+        assert two["gru_masked"] == 3.0
+    assert split_options(["7", "--checkpoint-dir", "d", "--device", "cpu"],
+                         "--checkpoint-dir") == (["7"], "cpu", None, "d")
+
+
+def test_progress_log_merges_calls(tmp_path):
+    """A call cut after its last step dir: the next call's log drops the
+    reports past that dir, and `curve` and `calls` join what the calls kept."""
+    root = str(tmp_path / "ckpt")
+    log = ProgressLog(root, "card A")
+    for steps in (10, 20, 30):
+        log(steps, {"mean_reward": steps / 10})
+    os.makedirs(os.path.join(root, f"step_{20:012d}"))  # the cut call saved at 20
+    log = ProgressLog(root, "card B")
+    assert [e["steps"] for e in log.curve()] == [10, 20]
+    for steps in (30, 40):
+        log(steps, {"mean_reward": -steps / 10})
+    assert log.curve() == [{"steps": 10, "mean_reward": 1.0}, {"steps": 20, "mean_reward": 2.0},
+                           {"steps": 30, "mean_reward": -3.0},
+                           {"steps": 40, "mean_reward": -4.0}]
+    calls = log.calls()
+    assert [(c["from"], c["to"], c["card"]) for c in calls] == [(0, 20, "card A"),
+                                                                 (20, 40, "card B")]
+    assert all(c["train_s"] > 0 for c in calls)
+    os.makedirs(os.path.join(root, f"step_{40:012d}"))
+    ProgressLog(root, "card C")  # a call that trains nothing more is left out of `calls`
+    assert [(c["from"], c["to"]) for c in ProgressLog(root, None).calls()] == [(0, 20), (20, 40)]
