@@ -95,6 +95,11 @@ them. Imports no jax and nothing of
      must equal the stored one), then the deterministic tag rate on 256
      episodes of the true AntTag (`eval_tag_checkpoint.tag_rate_rnn`), which
      must reach 0.95 (the JAX replay reads 0.9922), and the stochastic one;
+     then the same for the AntTag policy the port trained itself
+     (`eval_tag_checkpoint.PORT_NPZ`, the curriculum run resumed across
+     calls): the checksum, the det rate gated at its record's det rate on
+     the card less PORT_TAG_MARGIN, the stoch rate reported, each with its
+     seconds and launches;
  10. SAC trains the stock `ant` at examples/train_sac.py's recipe
      (`sac.ANT`: 128 envs, capacity 4096, batch 64, 32 steps an epoch,
      min_replay 64, hidden (256, 256)), naive autoreset, 4 epochs (epochs
@@ -350,6 +355,10 @@ ALL_WALLED_MIN_AGREE = 0.975
 GRU_EPOCHS, PPO_EPOCHS = 2, 2  # at ppo_rnn.ANT_TAG's and ppo.ANT_TAG's recipes
 HTML_FRAMES = 300  # examples/train_ppo.py's evaluation rollout
 MIN_TAG_RATE = 0.95  # the JAX replay of the checkpoint reads 0.9922
+# the port-trained AntTag policy replays the run's own det rate on the card
+# (the same 256 episodes): the margin holds a ~0.03 binomial spread, should
+# the card's arithmetic part a few episodes
+PORT_TAG_MARGIN = 0.05
 SAC_EPOCHS, GRU_SAC_EPOCHS, PER_EPOCHS = 4, 8, 2
 SAC_RADIUS = 20.0  # GRU-SAC's phase 0 visible radius
 # the GRU-SAC checkpoint's stochastic tag rate at radius 20, 256 episodes: JAX
@@ -886,6 +895,16 @@ def phase_checkpoint(dev, card: str) -> int:
           f"stored one: {same}", flush=True)
     if not same:
         fail("the loaded checkpoint's parameters do not match their checksum")
+    rates, det_launches = _tag_replay(dev, card, "checkpoint", learner, ts)
+    if not rates["det"] >= MIN_TAG_RATE:
+        fail(f"the checkpoint's deterministic tag rate {rates['det']} is below {MIN_TAG_RATE}")
+    return det_launches
+
+
+def _tag_replay(dev, card: str, tag: str, learner, ts):
+    """A GRU-PPO AntTag state's true tag rates on 256 episodes, det at reset
+    seed 0 and stoch at seed 1, each line with its seconds and launches ->
+    (rates, the det replay's whole-step launches)."""
     inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
     rates = {}
     for name, seed, det in (("det", 0, True), ("stoch", 1, False)):
@@ -898,11 +917,32 @@ def phase_checkpoint(dev, card: str) -> int:
         launches = whole_step.launches
         if name == "det":
             det_launches = launches
-        print(f"[checkpoint] true tag rate {name} {rates[name]:.4f} on 256 episodes in "
+        print(f"[{tag}] true tag rate {name} {rates[name]:.4f} on 256 episodes in "
               f"{time.perf_counter() - t0:.3f} s, whole-step launches {launches}; {card}",
               flush=True)
-    if not rates["det"] >= MIN_TAG_RATE:
-        fail(f"the checkpoint's deterministic tag rate {rates['det']} is below {MIN_TAG_RATE}")
+    return rates, det_launches
+
+
+def phase_port_checkpoint(dev, card: str) -> int:
+    """The AntTag policy the port trained itself (`train_ant_tag_rnn
+    --curriculum --checkpoint-dir`, exported by
+    `tools/export_run_checkpoint.py --tag`): the checksum, then the det tag
+    rate, gated at the run's own det rate on the card (its record) less
+    PORT_TAG_MARGIN, and the stoch rate, reported. Returns the det replay's
+    whole-step launches."""
+    with open(eval_tag_checkpoint.PORT_RECORD) as f:
+        record = json.load(f)
+    learner, ts, same = eval_tag_checkpoint.load(eval_tag_checkpoint.PORT_NPZ, device=dev)
+    print(f"[port checkpoint] {os.path.relpath(eval_tag_checkpoint.PORT_NPZ, ROOT)}: epochs "
+          f"{ts.epochs}, parameters' checksum equal to the stored one: {same}; the run's "
+          f"record reads det {record['true_tag_rate_det']:.4f} / stoch "
+          f"{record['true_tag_rate_stoch']:.4f}", flush=True)
+    if not same:
+        fail("the port-trained checkpoint's parameters do not match their checksum")
+    rates, det_launches = _tag_replay(dev, card, "port checkpoint", learner, ts)
+    gate = record["true_tag_rate_det"] - PORT_TAG_MARGIN
+    if not rates["det"] >= gate:
+        fail(f"the port-trained checkpoint's det tag rate {rates['det']} is below {gate}")
     return det_launches
 
 
@@ -2431,7 +2471,8 @@ def main() -> None:
     launches[LEARNER] = phase_train(dev, card, "gru")[0]
     launches[ppo_at] = phase_train(dev, card, "ppo")[0]
     launches[GRU_SAC_RANK] = phase_checkpoint(dev, card)  # 256 episodes
-    lap("train:gru, train:ppo, checkpoint")
+    launches[GRU_SAC_RANK] += phase_port_checkpoint(dev, card)
+    lap("train:gru, train:ppo, checkpoint, port checkpoint")
     launches[ppo_at] += phase_surface(dev, card)
     lap("surface: exports, ops, flatten_optimizer=False (phase 20)")
     trained, inference_fn, params = phase_train(dev, card, "ppo_halfcheetah")

@@ -4,7 +4,8 @@ The counterpart of `tools/eval_tag_checkpoint.py` and of the evaluation in
 examples/train_ant_tag_sac_rnn.py: loads the numpy export of
 `checkpoints/ant_tag_rnn_900M` (GRU-PPO, the default) or of
 `checkpoints/ant_tag_sac_rnn_phase0_750M` (GRU-SAC, `--sac`), written by
-`tools/export_torch_checkpoint.py`, checks the loaded parameters against the
+`tools/export_torch_checkpoint.py`, or a GRU-PPO state the port trained
+(`PORT_NPZ`, `tools/export_run_checkpoint.py --tag`), checks the loaded parameters against the
 checksum stored beside them, and reports the TRUE sparse tag rate on 256
 episodes of AntTag under ActionRepeat(6) -> Episode(1000) -> Vmap, as
 `tag_rate_rnn` of examples/train_ant_tag_rnn.py measures it:
@@ -37,6 +38,13 @@ from pobrax_tpu_torch.training import ppo_rnn, sac_rnn
 _DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 DEFAULT_NPZ = os.path.join(_DIR, "ant_tag_rnn_900M.npz")
 SAC_NPZ = os.path.join(_DIR, "ant_tag_sac_rnn_phase0_750M.npz")
+# the port's own AntTag curriculum run on the H100 (`train_ant_tag_rnn
+# --curriculum --checkpoint-dir`), where it stands: its resume state, exported
+# by `tools/export_run_checkpoint.py --tag`, with its progress log beside it
+# (`<npz without .npz>.progress.jsonl`), and its record (`--partial`)
+PORT_NPZ = os.path.join(_DIR, "ant_tag_rnn_curriculum_308M_torch.npz")
+PORT_RECORD = os.path.join(os.path.dirname(_DIR), "docs",
+                           "learning_ant_tag_curriculum_partial.json")
 ACTION_REPEAT = ppo_rnn.ANT_TAG.action_repeat  # the JAX package's HAI_ACTION_REPEAT, 6
 HIDDEN = ppo_rnn.ANT_TAG.hidden_size
 SAC_RADII = (20.0, 4.0)  # phase 0's radius, then train_ant_tag_sac_rnn.py's "true" one

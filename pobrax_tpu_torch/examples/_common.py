@@ -105,7 +105,9 @@ class ProgressLog:
     resumed from, "card": ...} where a call starts training, then one
     {"steps", "mean_reward", "t"} per progress report (`t`: seconds since the
     call started training). Opening the log drops the reports past the latest
-    step dir: a cut call trains those epochs again."""
+    step dir: a cut call trains those epochs again. A curriculum adds one
+    {"phase_end": visible radius, "steps", ...its replays' rates} where a
+    phase's last step dir is replayed (`phase_end`, `phase_ends`)."""
 
     def __init__(self, checkpoint_dir: str, card: Optional[str]):
         os.makedirs(checkpoint_dir, exist_ok=True)
@@ -125,23 +127,36 @@ class ProgressLog:
 
     def __call__(self, steps: int, metrics: dict) -> None:
         """A learner's `progress_fn`."""
-        entry = {"steps": steps, "mean_reward": metrics.get("mean_reward"),
-                 "t": time.perf_counter() - self.t0}
+        self._append({"steps": steps, "mean_reward": metrics.get("mean_reward"),
+                      "t": time.perf_counter() - self.t0})
+
+    def _append(self, entry: dict) -> None:
         self.lines.append(entry)
         with open(self.path, "a") as f:
             f.write(json.dumps(entry) + "\n")
 
+    def phase_end(self, radius: float, steps: int, **rates: float) -> None:
+        """Logs the replays of a curriculum phase's last step dir."""
+        self._append({"phase_end": radius, "steps": steps, **rates})
+
+    def phase_ends(self) -> List[dict]:
+        """The `phase_end` entries logged so far."""
+        return [e for e in self.lines if "phase_end" in e]
+
+    def _reports(self) -> List[dict]:
+        return [e for e in self.lines if "phase_end" not in e]
+
     def curve(self) -> List[dict]:
         """[{"steps", "mean_reward"}] of every call."""
         return [{"steps": e["steps"], "mean_reward": e["mean_reward"]}
-                for e in self.lines if "steps" in e]
+                for e in self._reports() if "steps" in e]
 
     def calls(self) -> List[dict]:
         """[{"from", "to", "train_s", "card"}]: the env-steps each call
         trained that a later call kept, and its training's seconds up to its
         last kept report; a call that kept none is left out."""
         out = []
-        for e in self.lines:
+        for e in self._reports():
             if "call" in e:
                 out.append({"from": e["call"], "to": e["call"], "train_s": 0.0,
                             "card": e["card"]})

@@ -3,7 +3,8 @@ examples/train_heavenhell_sac_rnn.py.
 
 The off-policy memory agent on the same privileged progress shaping as
 train_heavenhell_rnn.py (training time only), the same true-env evaluation
-(completion rate, heaven rate among completions). n-step(5) targets and a
+(completion rate, heaven rate among completions); the record also holds
+the training's seconds (`wall_s`) and the card (`device`). n-step(5) targets and a
 reward scale of 10 are the example's recipe: with 1-step targets or an
 unscaled reward the JAX study measured no learning.
 
@@ -14,6 +15,7 @@ Usage: python -m pobrax_tpu_torch.examples.train_heavenhell_sac_rnn [num_timeste
 from __future__ import annotations
 
 import sys
+import time
 from typing import Optional
 
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs
@@ -21,6 +23,7 @@ from pobrax_tpu_torch.examples._common import run_path, split_options, write_jso
 from pobrax_tpu_torch.examples.train_heavenhell_rnn import (ShapedHeavenHell, gru_policy,
                                                             outcome_rates, random_policy)
 from pobrax_tpu_torch.training import sac_rnn
+from pobrax_tpu_torch.utils.profiling import record_device
 
 HIDDEN = 128
 # examples/train_heavenhell_sac_rnn.py's sac_rnn.train arguments but the env,
@@ -49,9 +52,14 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 512, device=None,
             print(f"  {steps:>12,} steps  mean_reward={history[-1]['mean_reward']:+.4f}",
                   flush=True)
 
+    t0 = time.perf_counter()
     inference_fn, params, _ = sac_rnn.train(
         ShapedHeavenHell(_envs["ant_heavenhell"](device=device), coef=5.0),
         num_timesteps=num_timesteps, num_envs=num_envs, progress_fn=progress, **RECIPE)
+    wall_s = time.perf_counter() - t0
+    card = record_device(env.device)["card"]
+    print(f"trained {num_timesteps:,} env-steps in {wall_s:.1f} s; {card or env.device}",
+          flush=True)
 
     det_c, det_h = outcome_rates(_envs["ant_heavenhell"](device=device),
                                  **gru_policy(inference_fn, params, HIDDEN, env.device, True),
@@ -64,7 +72,8 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 512, device=None,
     payload = {"num_timesteps": num_timesteps, "num_envs": num_envs,
                "random": {"completion": rand_c, "heaven": rand_h},
                "gru_sac_det": {"completion": det_c, "heaven": det_h},
-               "gru_sac_stoch": {"completion": sto_c, "heaven": sto_h}, "curve": history}
+               "gru_sac_stoch": {"completion": sto_c, "heaven": sto_h}, "curve": history,
+               "wall_s": wall_s, "device": card or str(env.device)}
     write_json(out or run_path("learning_heavenhell_sac_rnn.json"), payload)
     return payload
 

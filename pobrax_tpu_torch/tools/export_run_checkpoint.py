@@ -4,14 +4,16 @@ JAX package's orbax checkpoints.
 
 Restores the latest `step_*` directory under CKPT_DIR (the layout of
 `training/checkpoint.save_step`: the `--checkpoint-dir` of
-`examples.train_heavenhell_rnn`) into the learner that
-`eval_checkpoint.load("heavenhell")` builds, and writes
+`examples.train_heavenhell_rnn`, or with `--tag` of
+`examples.train_ant_tag_rnn --curriculum`) into the learner that
+`eval_checkpoint.load("heavenhell")` builds (with `--tag`,
+`eval_tag_checkpoint.load`'s AntTag GRU-PPO learner), and writes
 `interop.training_state_to_numpy` of it, each leaf under its '/'-joined
 path (params, opt_state/{count,mu,nu}, normalizer, epochs), plus
 `params_sha256` (`interop.params_checksum`).
 
 Usage: python -m pobrax_tpu_torch.tools.export_run_checkpoint CKPT_DIR OUT.npz
-       [--device cpu]
+       [--tag] [--device cpu]
 (the card unless a device is named)
 """
 
@@ -25,8 +27,11 @@ import numpy as np
 
 from pobrax_tpu_torch import eval_checkpoint, interop
 from pobrax_tpu_torch import random as jr
+from pobrax_tpu_torch.device import resolve
+from pobrax_tpu_torch.envs.ant_tag import AntTagEnv
 from pobrax_tpu_torch.examples._common import make_parent, split_options
 from pobrax_tpu_torch.training import checkpoint as ckpt
+from pobrax_tpu_torch.training import ppo_rnn
 
 
 def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, np.ndarray]]:
@@ -38,9 +43,17 @@ def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, np.ndarray]]
         yield "/".join(path), np.asarray(tree)
 
 
-def arrays(ckpt_dir: str, device=None) -> Dict[str, np.ndarray]:
+def learner_for(tag: bool, device=None) -> ppo_rnn.RNNPPOLearner:
+    """The learner a run's state restores into: AntTag's (`tag`) or
+    HeavenHell's, both at the examples' widths."""
+    if tag:
+        return ppo_rnn.RNNPPOLearner(AntTagEnv(device=resolve(device)), ppo_rnn.ANT_TAG)
+    return eval_checkpoint.learner_for("heavenhell", device)
+
+
+def arrays(ckpt_dir: str, device=None, tag: bool = False) -> Dict[str, np.ndarray]:
     """The npz's entries for the latest state saved under `ckpt_dir`."""
-    learner = eval_checkpoint.learner_for("heavenhell", device)
+    learner = learner_for(tag, device)
     ts = ckpt.restore(ckpt.latest_step_dir(ckpt_dir) or ckpt_dir,
                       template=learner.init(jr.PRNGKey(0, learner.device)))
     tree = interop.training_state_to_numpy(ts)
@@ -49,8 +62,8 @@ def arrays(ckpt_dir: str, device=None) -> Dict[str, np.ndarray]:
     return out
 
 
-def export(ckpt_dir: str, out: str, device=None) -> None:
-    entries = arrays(ckpt_dir, device)
+def export(ckpt_dir: str, out: str, device=None, tag: bool = False) -> None:
+    entries = arrays(ckpt_dir, device, tag)
     np.savez(make_parent(out), **entries)
     print(f"wrote {out}: {len(entries) - 1} leaves, epochs {int(entries['epochs'])}, "
           f"{os.path.getsize(out)} bytes, params sha256 {entries['params_sha256']}", flush=True)
@@ -58,4 +71,4 @@ def export(ckpt_dir: str, out: str, device=None) -> None:
 
 if __name__ == "__main__":
     args, device, _ = split_options(sys.argv[1:])
-    export(*args[:2], device=device)
+    export(*[a for a in args if a != "--tag"][:2], device=device, tag="--tag" in args)

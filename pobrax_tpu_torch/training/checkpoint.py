@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import shutil
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -78,10 +79,16 @@ def latest_step_dir(root: str) -> Optional[str]:
 
 def save_step(root: str, step: int, ts, mesh=None) -> str:
     """Save `ts` under `root/step_<step>`; with a `mesh`, process 0 writes
-    and every process meets the others at a barrier after it."""
+    and every process meets the others at a barrier after it. The state is
+    written beside the step dir and renamed into place, so a process killed
+    mid-save leaves no step dir that a resume would pick and fail to load."""
     path = os.path.join(root, f"step_{step:012d}")
     if mesh is None or mesh.process_rank == 0:
-        save(path, ts)
+        partial = os.path.join(root, f".partial_step_{step:012d}")
+        shutil.rmtree(partial, ignore_errors=True)
+        save(partial, ts)
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(partial, path)
     barrier(mesh)
     return path
 

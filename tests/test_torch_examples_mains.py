@@ -359,6 +359,98 @@ def test_main_curriculum_resumes_across_phases(monkeypatch, tmp_path):
     assert record["curriculum"] == [list(p) for p in curriculum]
 
 
+class _Cut(Exception):
+    """A call cut short."""
+
+
+def test_curriculum_resumes_a_cut_run(monkeypatch, tmp_path):
+    """`--curriculum --checkpoint-dir D` at 8 envs, one epoch a phase (the
+    recipe's unroll cut to one control step), cut after phase 1 and run
+    again: the second call resumes from phase 1's step dir, trains phases 2
+    and 3, and every step dir equals an uncut call's bit for bit, as do the
+    curve, the phase-end replays and the rates; `calls` says which call
+    trained what. The call without the flag empties the directory first (no
+    `progress.jsonl` survives) and, since save points and logs change
+    nothing in training, ends at the same state. `--partial` between the
+    calls says where the cut run stands. The replays run 4 episodes of one
+    control step."""
+    monkeypatch.setitem(train_ant_tag_rnn.RECIPE, "unroll_length", 1)
+    monkeypatch.setattr(train_ant_tag_rnn, "tag_rate_rnn",
+                        functools.partial(train_ant_tag_rnn.tag_rate_rnn, episodes=4,
+                                          episode_length=1))
+    per_epoch = train_ant_tag_rnn.steps_per_epoch(8)
+    assert per_epoch == 8 * 1 * 6
+    curriculum = tuple((r, (i + 1) * per_epoch) for i, r in enumerate((20.0, 6.0, 4.0)))
+    monkeypatch.setattr(train_ant_tag_rnn, "CURRICULUM", curriculum)
+    steps = [f"step_{(i + 1) * per_epoch:012d}" for i in range(3)]
+
+    def run(name, *flag):
+        out = str(tmp_path / f"{name}.json")
+        train_ant_tag_rnn.cli(["--curriculum", "8", *flag, "--device", "cpu", "--out", out])
+        with open(out) as f:
+            return json.load(f)
+
+    def listing(d):
+        return sorted(os.listdir(d))
+
+    def states(d):
+        return [torch.load(os.path.join(d, s, "state.pt"), weights_only=True) for s in steps]
+
+    cut, whole = tmp_path / "cut", tmp_path / "whole"
+    train = ppo_rnn.train
+    calls = []
+
+    def cut_train(*args, **kwargs):
+        calls.append(kwargs["num_timesteps"])
+        if len(calls) == 2:
+            raise _Cut()
+        return train(*args, **kwargs)
+
+    monkeypatch.setattr(ppo_rnn, "train", cut_train)
+    with pytest.raises(_Cut):
+        run("cut1", "--checkpoint-dir", str(cut))
+    assert listing(cut) == ["progress.jsonl", steps[0]]
+    # where the cut run stands: at phase 1's end, so in phase 2 at radius 6
+    partial = run("partial", "--partial", "--checkpoint-dir", str(cut))
+    assert (partial["partial"], partial["steps"], partial["epochs"]) == (True, per_epoch, 1)
+    assert partial["training_radius"] == 6.0 and partial["device"] == "cpu"
+    assert [e["phase_end"] for e in partial["phase_ends"]] == [20.0]
+    assert [(c["from"], c["to"]) for c in partial["calls"]] == [(0, per_epoch)]
+    monkeypatch.setattr(ppo_rnn, "train", train)
+    resumed = run("cut2", "--checkpoint-dir", str(cut))
+    uncut = run("whole", "--checkpoint-dir", str(whole))
+    assert listing(cut) == listing(whole) == ["progress.jsonl", *steps]
+    for a, b in zip(states(cut), states(whole)):
+        assert a["epochs"] == b["epochs"]
+        for k in ("params", "opt_state", "normalizer"):
+            assert _bits(a[k]) == _bits(b[k]), k
+    assert [(c["from"], c["to"]) for c in resumed["calls"]] == [(0, per_epoch),
+                                                                 (per_epoch, 3 * per_epoch)]
+    assert [(c["from"], c["to"]) for c in uncut["calls"]] == [(0, 3 * per_epoch)]
+    assert [e["steps"] for e in resumed["curve"]] == [per_epoch, 2 * per_epoch, 3 * per_epoch]
+    for k in ("curve", "phase_ends", "true_tag_rate_det", "true_tag_rate_stoch", "curriculum"):
+        assert resumed[k] == uncut[k], k
+    assert [(e["phase_end"], e["steps"]) for e in resumed["phase_ends"]] == [
+        (20.0, per_epoch), (6.0, 2 * per_epoch)]
+    assert resumed["device"] == "cpu" and resumed["wall_s"] > 0
+    # without the flag: JAX's fresh directory (its default, here `cut`) and record
+    monkeypatch.setattr(train_ant_tag_rnn, "run_path", lambda name: str(cut))
+    flagless = run("flagless")
+    assert listing(cut) == steps
+    assert sorted(flagless) == ["curriculum", "hidden_size", "num_envs", "seed",
+                                "true_tag_rate_det", "true_tag_rate_stoch"]
+    assert flagless["true_tag_rate_det"] == uncut["true_tag_rate_det"]
+    for a, b in zip(states(cut), states(whole)):
+        assert _bits(a["params"]) == _bits(b["params"])
+
+
+def _bits(tree):
+    """A saved state's tensors as bytes, by key."""
+    if isinstance(tree, dict):
+        return {k: _bits(v) for k, v in tree.items()}
+    return tree.numpy().tobytes() if isinstance(tree, torch.Tensor) else tree
+
+
 def test_visualize_draws_jax_frames(tmp_path):
     steps = 3
     jvisualize.main("ant_tag", steps, str(tmp_path / "j.html"))
