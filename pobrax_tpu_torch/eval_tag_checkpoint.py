@@ -42,7 +42,7 @@ SAC_NPZ = os.path.join(_DIR, "ant_tag_sac_rnn_phase0_750M.npz")
 # --curriculum --checkpoint-dir`), where it stands: its resume state, exported
 # by `tools/export_run_checkpoint.py --tag`, with its progress log beside it
 # (`<npz without .npz>.progress.jsonl`), and its record (`--partial`)
-PORT_NPZ = os.path.join(_DIR, "ant_tag_rnn_curriculum_308M_torch.npz")
+PORT_NPZ = os.path.join(_DIR, "ant_tag_rnn_curriculum_641M_torch.npz")
 PORT_RECORD = os.path.join(os.path.dirname(_DIR), "docs",
                            "learning_ant_tag_curriculum_partial.json")
 ACTION_REPEAT = ppo_rnn.ANT_TAG.action_repeat  # the JAX package's HAI_ACTION_REPEAT, 6

@@ -363,26 +363,43 @@ class _Cut(Exception):
     """A call cut short."""
 
 
-def test_curriculum_resumes_a_cut_run(monkeypatch, tmp_path):
-    """`--curriculum --checkpoint-dir D` at 8 envs, one epoch a phase (the
-    recipe's unroll cut to one control step), cut after phase 1 and run
-    again: the second call resumes from phase 1's step dir, trains phases 2
-    and 3, and every step dir equals an uncut call's bit for bit, as do the
-    curve, the phase-end replays and the rates; `calls` says which call
-    trained what. The call without the flag empties the directory first (no
-    `progress.jsonl` survives) and, since save points and logs change
-    nothing in training, ends at the same state. `--partial` between the
-    calls says where the cut run stands. The replays run 4 episodes of one
-    control step."""
+@pytest.mark.parametrize("cut_at", ["phase_1_end", "inside_phase_2"])
+def test_curriculum_resumes_a_cut_run(monkeypatch, tmp_path, cut_at):
+    """`--curriculum --checkpoint-dir D` at 8 envs (the recipe's unroll cut to
+    one control step), cut and run again; `--partial` between the calls says
+    where the cut run stands (in phase 2, at radius 6). The replays run 4
+    episodes of one control step.
+
+    `phase_1_end`: one epoch a phase, cut after phase 1. The second call
+    resumes from phase 1's step dir, trains phases 2 and 3, and every step dir
+    equals an uncut call's bit for bit, as do the curve, the phase-end replays
+    and the rates; `calls` says which call trained what. The call without the
+    flag empties the directory first (no `progress.jsonl` survives) and,
+    since save points and logs change nothing in training, ends at the same
+    state.
+
+    `inside_phase_2`: two epochs a phase and a save every epoch, cut right
+    after phase 2's first epoch is saved; the second call finishes phase 2,
+    replays its end and crosses into phase 3. The env and hidden state restart
+    on resume, so the run it equals bit for bit, step dir by step dir, is one
+    whose first call ends at the same step dir without a cut (a curriculum
+    whose last phase ends there). Each phase end is logged once, the curve's
+    steps rise with no repeat, and `calls` says which call trained what."""
+    inside = cut_at == "inside_phase_2"
     monkeypatch.setitem(train_ant_tag_rnn.RECIPE, "unroll_length", 1)
     monkeypatch.setattr(train_ant_tag_rnn, "tag_rate_rnn",
                         functools.partial(train_ant_tag_rnn.tag_rate_rnn, episodes=4,
                                           episode_length=1))
     per_epoch = train_ant_tag_rnn.steps_per_epoch(8)
     assert per_epoch == 8 * 1 * 6
-    curriculum = tuple((r, (i + 1) * per_epoch) for i, r in enumerate((20.0, 6.0, 4.0)))
+    per_phase = (2 if inside else 1) * per_epoch
+    curriculum = tuple((r, (i + 1) * per_phase) for i, r in enumerate((20.0, 6.0, 4.0)))
     monkeypatch.setattr(train_ant_tag_rnn, "CURRICULUM", curriculum)
-    steps = [f"step_{(i + 1) * per_epoch:012d}" for i in range(3)]
+    if inside:
+        monkeypatch.setattr(train_ant_tag_rnn, "RESUME_CHECKPOINT_EVERY", per_epoch)
+    every = per_epoch if inside else per_phase  # the save points
+    steps = [f"step_{s:012d}" for s in range(every, 3 * per_phase + 1, every)]
+    cut_steps = per_phase + (per_epoch if inside else 0)
 
     def run(name, *flag):
         out = str(tmp_path / f"{name}.json")
@@ -397,7 +414,7 @@ def test_curriculum_resumes_a_cut_run(monkeypatch, tmp_path):
         return [torch.load(os.path.join(d, s, "state.pt"), weights_only=True) for s in steps]
 
     cut, whole = tmp_path / "cut", tmp_path / "whole"
-    train = ppo_rnn.train
+    train, save_step = ppo_rnn.train, ckpt.save_step
     calls = []
 
     def cut_train(*args, **kwargs):
@@ -406,33 +423,56 @@ def test_curriculum_resumes_a_cut_run(monkeypatch, tmp_path):
             raise _Cut()
         return train(*args, **kwargs)
 
-    monkeypatch.setattr(ppo_rnn, "train", cut_train)
+    def cut_save(root, step, ts, mesh=None):
+        path = save_step(root, step, ts, mesh)
+        if step == cut_steps:
+            raise _Cut()
+        return path
+
+    if inside:
+        monkeypatch.setattr(ckpt, "save_step", cut_save)
+    else:
+        monkeypatch.setattr(ppo_rnn, "train", cut_train)
     with pytest.raises(_Cut):
         run("cut1", "--checkpoint-dir", str(cut))
-    assert listing(cut) == ["progress.jsonl", steps[0]]
-    # where the cut run stands: at phase 1's end, so in phase 2 at radius 6
+    assert listing(cut) == ["progress.jsonl", *steps[:steps.index(f"step_{cut_steps:012d}") + 1]]
     partial = run("partial", "--partial", "--checkpoint-dir", str(cut))
-    assert (partial["partial"], partial["steps"], partial["epochs"]) == (True, per_epoch, 1)
+    assert (partial["partial"], partial["steps"]) == (True, cut_steps)
+    assert partial["epochs"] == cut_steps // per_epoch
     assert partial["training_radius"] == 6.0 and partial["device"] == "cpu"
     assert [e["phase_end"] for e in partial["phase_ends"]] == [20.0]
-    assert [(c["from"], c["to"]) for c in partial["calls"]] == [(0, per_epoch)]
+    assert [(c["from"], c["to"]) for c in partial["calls"]] == [(0, cut_steps)]
     monkeypatch.setattr(ppo_rnn, "train", train)
+    monkeypatch.setattr(ckpt, "save_step", save_step)
     resumed = run("cut2", "--checkpoint-dir", str(cut))
+    if inside:  # the uncut run's first call ends where the cut one was cut
+        monkeypatch.setattr(train_ant_tag_rnn, "CURRICULUM",
+                            (curriculum[0], (curriculum[1][0], cut_steps)))
+        run("whole1", "--checkpoint-dir", str(whole))
+        monkeypatch.setattr(train_ant_tag_rnn, "CURRICULUM", curriculum)
     uncut = run("whole", "--checkpoint-dir", str(whole))
     assert listing(cut) == listing(whole) == ["progress.jsonl", *steps]
     for a, b in zip(states(cut), states(whole)):
         assert a["epochs"] == b["epochs"]
         for k in ("params", "opt_state", "normalizer"):
             assert _bits(a[k]) == _bits(b[k]), k
-    assert [(c["from"], c["to"]) for c in resumed["calls"]] == [(0, per_epoch),
-                                                                 (per_epoch, 3 * per_epoch)]
-    assert [(c["from"], c["to"]) for c in uncut["calls"]] == [(0, 3 * per_epoch)]
-    assert [e["steps"] for e in resumed["curve"]] == [per_epoch, 2 * per_epoch, 3 * per_epoch]
+    assert [(c["from"], c["to"]) for c in resumed["calls"]] == [(0, cut_steps),
+                                                                 (cut_steps, 3 * per_phase)]
+    assert [(c["from"], c["to"]) for c in uncut["calls"]] == (
+        [(0, cut_steps), (cut_steps, 3 * per_phase)] if inside else [(0, 3 * per_phase)])
+    assert [e["steps"] for e in resumed["curve"]] == list(range(per_epoch, 3 * per_phase + 1,
+                                                                per_epoch))
     for k in ("curve", "phase_ends", "true_tag_rate_det", "true_tag_rate_stoch", "curriculum"):
         assert resumed[k] == uncut[k], k
     assert [(e["phase_end"], e["steps"]) for e in resumed["phase_ends"]] == [
-        (20.0, per_epoch), (6.0, 2 * per_epoch)]
+        (20.0, per_phase), (6.0, 2 * per_phase)]
+    with open(cut / "progress.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    assert [(e["phase_end"], e["steps"]) for e in log if "phase_end" in e] == [
+        (20.0, per_phase), (6.0, 2 * per_phase)]
     assert resumed["device"] == "cpu" and resumed["wall_s"] > 0
+    if inside:
+        return
     # without the flag: JAX's fresh directory (its default, here `cut`) and record
     monkeypatch.setattr(train_ant_tag_rnn, "run_path", lambda name: str(cut))
     flagless = run("flagless")

@@ -15,7 +15,8 @@ run's last step dir), with the run's progress log beside it and its record
     of the loaded state gives the file's arrays back bit for bit; the export
     tool writes the same entries from a step dir the port saved;
   * `train_ant_tag_rnn.seed_checkpoint_dir` turns it into the step dir a
-    resumed run starts from, with the progress log;
+    resumed run starts from, with the progress log; that log holds the
+    replays of the first two phase ends, as the record does;
   * one GRU policy step, deterministic and stochastic, of the port against
     JAX's `ppo_rnn` inference on the carried parameters, from one seeded JAX
     reset, one nonzero hidden state and one key, within 1e-5;
@@ -133,6 +134,23 @@ def test_seed_checkpoint_dir_starts_the_resumed_run(tmp_path):
     assert [c for c in lines if "call" in c][0]["call"] == 0
     assert max(e.get("steps", 0) for e in lines) == record["steps"]
     assert train_ant_tag_rnn.seed_checkpoint_dir(root, NPZ, device="cpu") is None
+
+
+def test_progress_log_holds_the_phase_ends():
+    """The progress log committed beside the npz: its `phase_end` entries are
+    the curriculum's first two phase ends (300M and 600M), each once, equal to
+    the record's `phase_ends`; its last kept report is at the npz's epochs."""
+    _, _, _, ts, _ = _pair()
+    with open(NPZ[:-len(".npz")] + ".progress.jsonl") as f:
+        lines = [json.loads(line) for line in f]
+    per_epoch = train_ant_tag_rnn.steps_per_epoch(2048)
+    ends = [e for e in lines if "phase_end" in e]
+    assert [(e["phase_end"], e["steps"]) for e in ends] == [
+        (radius, train_ant_tag_rnn.phase_end(total, per_epoch))
+        for radius, total in train_ant_tag_rnn.CURRICULUM[:2]]
+    assert ends == _record()["phase_ends"]
+    reports = [e["steps"] for e in lines if "mean_reward" in e]
+    assert reports[-1] == ts.epochs * per_epoch == _record()["steps"]
 
 
 @functools.lru_cache(maxsize=None)
