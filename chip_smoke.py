@@ -96,10 +96,12 @@ them. Imports no jax and nothing of
      episodes of the true AntTag (`eval_tag_checkpoint.tag_rate_rnn`), which
      must reach 0.95 (the JAX replay reads 0.9922), and the stochastic one;
      then the same for the AntTag policy the port trained itself
-     (`eval_tag_checkpoint.PORT_NPZ`, the curriculum run resumed across
-     calls): the checksum, the det rate gated at its record's det rate on
-     the card less PORT_TAG_MARGIN, the stoch rate reported, each with its
-     seconds and launches;
+     (`eval_tag_checkpoint.PORT_NPZ`, the curriculum run's final state at
+     900M, resumed across calls): the checksum, the det rate gated at its
+     record's det rate on the card less PORT_TAG_MARGIN, the stoch rate
+     reported, each with its seconds and launches (a solving policy ends
+     its episodes early, so the det replay launches fewer than 1,000
+     times);
  10. SAC trains the stock `ant` at examples/train_sac.py's recipe
      (`sac.ANT`: 128 envs, capacity 4096, batch 64, 32 steps an epoch,
      min_replay 64, hidden (256, 256)), naive autoreset, 4 epochs (epochs

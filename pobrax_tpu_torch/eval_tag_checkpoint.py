@@ -39,12 +39,12 @@ _DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 DEFAULT_NPZ = os.path.join(_DIR, "ant_tag_rnn_900M.npz")
 SAC_NPZ = os.path.join(_DIR, "ant_tag_sac_rnn_phase0_750M.npz")
 # the port's own AntTag curriculum run on the H100 (`train_ant_tag_rnn
-# --curriculum --checkpoint-dir`), where it stands: its resume state, exported
-# by `tools/export_run_checkpoint.py --tag`, with its progress log beside it
-# (`<npz without .npz>.progress.jsonl`), and its record (`--partial`)
-PORT_NPZ = os.path.join(_DIR, "ant_tag_rnn_curriculum_641M_torch.npz")
-PORT_RECORD = os.path.join(os.path.dirname(_DIR), "docs",
-                           "learning_ant_tag_curriculum_partial.json")
+# --curriculum --checkpoint-dir`, resumed across calls to its end, 900M): its
+# final training state, exported by `tools/export_run_checkpoint.py --tag`,
+# with its progress log beside it (`<npz without .npz>.progress.jsonl`), and
+# its record; `--resume-from PORT_NPZ` seeds a run dir from them
+PORT_NPZ = os.path.join(_DIR, "ant_tag_rnn_curriculum_900M_torch.npz")
+PORT_RECORD = os.path.join(os.path.dirname(_DIR), "docs", "learning_ant_tag_curriculum.json")
 ACTION_REPEAT = ppo_rnn.ANT_TAG.action_repeat  # the JAX package's HAI_ACTION_REPEAT, 6
 HIDDEN = ppo_rnn.ANT_TAG.hidden_size
 SAC_RADII = (20.0, 4.0)  # phase 0's radius, then train_ant_tag_sac_rnn.py's "true" one
@@ -89,7 +89,8 @@ def main(npz: Optional[str] = None, device: Optional[str] = None, episodes: int 
     if not same:
         raise RuntimeError(f"{npz}: the loaded parameters do not match their checksum")
     inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
-    result = {"npz": npz, "epochs": ts.epochs, "checksum_ok": same, "episodes": episodes}
+    result = {"npz": os.path.basename(npz), "epochs": ts.epochs, "checksum_ok": same,
+              "episodes": episodes}
     for name, radius, seed, det in measurements(sac, seeds):
         env = AntTagEnv(device=learner.device,
                         **({} if radius is None else {"visible_radius": radius}))

@@ -143,8 +143,9 @@ def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
     `RESUME_CHECKPOINT_EVERY` env-steps (save points change nothing in
     training), logs each call in `ProgressLog`, replays the last step dir of
     every phase but the last on the true env (det seed 0, stoch seed 1) into
-    that log, and the record gains `curve`, `calls`, `wall_s`, `device` and
-    `phase_ends`. `resume_from` seeds an empty dir (`seed_checkpoint_dir`)."""
+    that log, and the record gains `epochs`, `steps`, `curve`, `calls`,
+    `wall_s`, `device` and `phase_ends`. `resume_from` seeds an empty dir
+    (`seed_checkpoint_dir`)."""
     checkpoint_dir = checkpoint_dir or run_path("ant_tag_rnn_ckpt")
     if not resume:
         shutil.rmtree(checkpoint_dir, ignore_errors=True)
@@ -183,7 +184,8 @@ def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
                "seed": seed, "hidden_size": HIDDEN, "true_tag_rate_det": det,
                "true_tag_rate_stoch": stoch}
     if log is not None:
-        payload.update(log_keys(log, card))
+        steps = phase_end(curriculum[-1][1], per_epoch)
+        payload.update(epochs=steps // per_epoch, steps=steps, **log_keys(log, card))
         print(f"trained over {len(payload['calls'])} call(s) in {payload['wall_s']:.1f} s; "
               f"{payload['device']}", flush=True)
     write_json(out, payload)

@@ -471,6 +471,7 @@ def test_curriculum_resumes_a_cut_run(monkeypatch, tmp_path, cut_at):
     assert [(e["phase_end"], e["steps"]) for e in log if "phase_end" in e] == [
         (20.0, per_phase), (6.0, 2 * per_phase)]
     assert resumed["device"] == "cpu" and resumed["wall_s"] > 0
+    assert (resumed["steps"], resumed["epochs"]) == (3 * per_phase, 3 * per_phase // per_epoch)
     if inside:
         return
     # without the flag: JAX's fresh directory (its default, here `cut`) and record

@@ -3,12 +3,13 @@ examples/train_ant_tag_rnn.py's visibility curriculum (radius 20 -> 6 -> 4,
 2048 envs, seed 0, `--curriculum --checkpoint-dir`, resumed across calls),
 carried back into the JAX package, on the CPU.
 
-The run has not reached 900M env-steps yet: the committed file is its
-resume state (`eval_tag_checkpoint.PORT_NPZ`, the full training state and
-its epoch count, written by `tools/export_run_checkpoint.py --tag` from the
-run's last step dir), with the run's progress log beside it and its record
-`eval_tag_checkpoint.PORT_RECORD` (`train_ant_tag_rnn --curriculum
---partial`: the card's rates of that state).
+The run is complete: the committed file is its final state at 900,071,424
+env-steps (`eval_tag_checkpoint.PORT_NPZ`, the full training state and its
+epoch count, 2,289, written by `tools/export_run_checkpoint.py --tag` from
+the run's last step dir), with the run's progress log beside it and its
+record `eval_tag_checkpoint.PORT_RECORD` (`main_curriculum`'s, written on
+the card when phase 3 ended: the true-env rates of that state, the calls
+that trained it).
 
   * the npz loads through `eval_tag_checkpoint.load` with its checksum
     equal, at the record's epoch count, and `interop.training_state_to_numpy`
@@ -17,18 +18,23 @@ run's last step dir), with the run's progress log beside it and its record
   * `train_ant_tag_rnn.seed_checkpoint_dir` turns it into the step dir a
     resumed run starts from, with the progress log; that log holds the
     replays of the first two phase ends, as the record does;
+  * the record's `calls` chain from 0 to the end, each on an NVIDIA card
+    named with its power limit, `wall_s` is their training seconds, and
+    the record holds every key of JAX's own curriculum record;
   * one GRU policy step, deterministic and stochastic, of the port against
     JAX's `ppo_rnn` inference on the carried parameters, from one seeded JAX
     reset, one nonzero hidden state and one key, within 1e-5;
-  * the port-trained policy in JAX's own AntTag env at the visible radius of
-    the phase it is in (the record's), with JAX's GRU inference: 16 det episodes
-    at reset seed 0 (JAX's `tag_rate_rnn` key order, stopped once every
-    episode has ended), gated a few episodes under the card's rate.
+  * the port-trained policy in JAX's own true AntTag env (visible radius 3,
+    the env's default; a record cut inside the curriculum would name its
+    `training_radius`), with JAX's GRU inference: 16 det episodes at reset
+    seed 0 (JAX's `tag_rate_rnn` key order, stopped once every episode has
+    ended), gated a few episodes under the card's rate.
 """
 
 import functools
 import json
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +56,10 @@ torch.set_num_threads(1)
 
 HIDDEN, EPISODES = 128, 16
 NPZ = eval_tag_checkpoint.PORT_NPZ
+FINAL_STEPS, FINAL_EPOCHS = 900_071_424, 2289  # the curriculum's last whole epoch
+TRUE_RADIUS = 3.0  # AntTag's default visible radius: the true env
+JAX_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "docs",
+                          "learning_ant_tag_curriculum_seed1.json")
 
 
 def _record() -> dict:
@@ -83,8 +93,8 @@ def test_npz_loads_with_its_checksum():
     _, _, _, ts, tree = _pair()
     record = _record()
     assert interop.params_checksum(tree["params"]) == tree["params_sha256"]
-    assert ts.epochs == record["epochs"] > 0 and record["partial"]
-    assert record["steps"] == ts.epochs * 2048 * 32 * HAI_ACTION_REPEAT
+    assert ts.epochs == record["epochs"] == FINAL_EPOCHS and not record.get("partial")
+    assert record["steps"] == ts.epochs * 2048 * 32 * HAI_ACTION_REPEAT == FINAL_STEPS
     assert record["calls"][-1]["to"] == record["steps"]
     assert os.path.getsize(NPZ) < 2_600_000
 
@@ -150,7 +160,26 @@ def test_progress_log_holds_the_phase_ends():
         for radius, total in train_ant_tag_rnn.CURRICULUM[:2]]
     assert ends == _record()["phase_ends"]
     reports = [e["steps"] for e in lines if "mean_reward" in e]
-    assert reports[-1] == ts.epochs * per_epoch == _record()["steps"]
+    assert reports[-1] == ts.epochs * per_epoch == _record()["steps"] == FINAL_STEPS
+
+
+def test_record_calls_chain_from_zero_to_the_end():
+    """The calls that trained the run, in order: each starts where the one
+    before it ended, from 0 to the final state, and names the NVIDIA card
+    and its power limit as nvidia-smi gives them; `wall_s` is the sum of
+    their training seconds. The record keeps every key of JAX's own."""
+    record = _record()
+    calls = record["calls"]
+    assert calls[0]["from"] == 0 and calls[-1]["to"] == record["steps"] == FINAL_STEPS
+    assert all(c["from"] < c["to"] for c in calls)
+    assert all(a["to"] == b["from"] for a, b in zip(calls, calls[1:]))
+    for c in calls:
+        assert re.fullmatch(r"NVIDIA .+, \d+(\.\d+)? W", c["card"]), c["card"]
+        assert c["train_s"] > 0
+    assert record["wall_s"] == pytest.approx(sum(c["train_s"] for c in calls), rel=1e-12)
+    with open(JAX_RECORD) as f:
+        jax_keys = set(json.load(f))
+    assert jax_keys <= set(record), jax_keys - set(record)
 
 
 @functools.lru_cache(maxsize=None)
@@ -204,13 +233,16 @@ def jax_tag_rate(jinf, jparams, radius: float, episodes: int, seed: int = 0) -> 
 
 
 def test_port_policy_in_jax_env():
-    """The card's det rate p on 256 episodes at the training radius (the
-    record) sets the gate: of 16 episodes, 16 p less 3 (about two binomial
-    spreads sqrt(16 p (1 - p)) <= 2 episodes, more at p near 1/2), since
-    JAX's closed loop parts from the port's within a few control steps."""
+    """The card's det rate p on 256 episodes of the true env at reset seed 0
+    (the record's; a record cut inside the curriculum gives it at its
+    `training_radius`) sets the gate: of 16 episodes, 16 p less 3 (about two
+    binomial spreads sqrt(16 p (1 - p)) <= 2 episodes, more at p near 1/2),
+    since JAX's closed loop parts from the port's within a few control
+    steps."""
     jinf, jparams, _, _, _ = _pair()
     record = _record()
-    radius, p = record["training_radius"], record["tag_rate_det_at_training_radius"]
+    radius = record.get("training_radius", TRUE_RADIUS)
+    p = record.get("tag_rate_det_at_training_radius", record["true_tag_rate_det"])
     rate = jax_tag_rate(jinf, jparams, radius, EPISODES)
     print(f"JAX's env at radius {radius:g}, {EPISODES} det episodes at seed 0: tag rate "
           f"{rate:.4f} (the card: {p:.4f} on 256)")
