@@ -175,9 +175,10 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      losses, moved parameters), then its true-env tag rates on 256 episodes,
      det and stoch, reported; (b) `eval_checkpoint.main` of the gather (800M
      and bombmem02 1B) and maze checkpoints and the port-trained HeavenHell
-     one: checksums, the maze's det goal rate gated at 0.95, gather's apples
-     and net and HeavenHell's completion and heaven rates (det seed 0, stoch
-     seed 1) gated at REPLAY_GATES; (c)
+     and maze ones: checksums, the maze's det goal rate gated at 0.95 (the
+     port-trained maze's at its record's less PORT_TAG_MARGIN), gather's
+     apples and net and HeavenHell's completion and heaven rates (det seed
+     0, stoch seed 1) gated at REPLAY_GATES; (c)
      `train_ant_gather_rnn.main_curriculum` at the bombmem02 recipe (sensor
      14 -> 6 -> 6, novelty 0.25, 0.25, 0, bomb memory 0.2), one call of 8
      epochs a phase, and its gather_eval; (d) `train_ant_maze_rnn.main`: the
@@ -440,11 +441,24 @@ OPS_RTOL = OPS_ATOL = 1e-6
 # four rates on the H100 (pobrax_tpu_torch/docs/learning_heavenhell_rnn.json,
 # det seed 0, stoch seed 1, as the replay runs them); 256 of 256 bounds each
 # rate only by the rule of three, p >= 0.988, at which 256 episodes miss 3.1
-# +- 1.7; each gate is the maze's 0.95 (12 misses), over 5 such spreads away
+# +- 1.7; each gate is the maze's 0.95 (12 misses), over 5 such spreads away.
+# The maze policy the port trained (seed 0, `export_run_checkpoint --maze`)
+# replays the state, episodes and reset seed of its run's own evaluation on
+# the card, so its gate is that record's det goal rate less PORT_TAG_MARGIN,
+# as the port-trained AntTag policy's is
+PORT_MAZE_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs", "learning_ant_maze_rnn.json")
+
+
+def _record_det(path: str) -> float:
+    with open(path) as f:
+        return json.load(f)["results"]["det"]
+
+
 REPLAY_GATES = {
     "gather": {"det_apples": 5.3, "det_net": 2.1, "stoch_apples": 5.7, "stoch_net": 2.0},
     "gather_bombmem": {"det_apples": 4.5, "det_net": 1.7, "stoch_apples": 6.0, "stoch_net": 2.2},
     "maze": {"det_goal_rate": 0.95},
+    "maze_port": {"det_goal_rate": _record_det(PORT_MAZE_RECORD) - PORT_TAG_MARGIN},
     "heavenhell": {"det_completion": 0.95, "det_heaven": 0.95, "stoch_completion": 0.95,
                    "stoch_heaven": 0.95}}
 

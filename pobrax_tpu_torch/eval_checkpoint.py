@@ -3,10 +3,11 @@ with the port.
 
 Loads the numpy export (`tools/export_torch_checkpoint.py`) of
 checkpoints/ant_gather_rnn_800M (`--gather`), ant_gather_rnn_bombmem02_1B
-(`--gather-bombmem`) or ant_maze_rnn_400M (`--maze`), or the policy the port
-itself trained at examples/train_heavenhell_rnn.py's recipe
-(ant_heavenhell_rnn_400M, `--heavenhell`, written by
-`pobrax_tpu_torch.tools.export_run_checkpoint`), checks the loaded
+(`--gather-bombmem`) or ant_maze_rnn_400M (`--maze`), or a policy the port
+itself trained, written by `pobrax_tpu_torch.tools.export_run_checkpoint`:
+at examples/train_heavenhell_rnn.py's recipe (ant_heavenhell_rnn_400M,
+`--heavenhell`) or at examples/train_ant_maze_rnn.py's, seed 0
+(ant_maze_rnn_400M_torch, `--maze-port`), checks the loaded
 parameters against the checksum stored beside them, and reports the
 example's own evaluator on 256 episodes under ActionRepeat(6) ->
 Episode(1000) -> Vmap, deterministic and stochastic, as the examples
@@ -20,8 +21,9 @@ of tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
 (300 frames); the JAX package has no HeavenHell renderer, so `--heavenhell`
 takes no `--html`.
 
-Usage: python -m pobrax_tpu_torch.eval_checkpoint --gather|--gather-bombmem|--maze|--heavenhell
-       [--device cpu] [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
+Usage: python -m pobrax_tpu_torch.eval_checkpoint
+       --gather|--gather-bombmem|--maze|--maze-port|--heavenhell [--device cpu]
+       [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
 (the card unless a device is named)
 """
 
@@ -52,6 +54,7 @@ _DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 CHECKPOINTS = {"gather": ("ant_gather", "ant_gather_rnn_800M.npz", 500, (0, 0)),
                "gather_bombmem": ("ant_gather", "ant_gather_rnn_bombmem02_1B.npz", 500, (0, 0)),
                "maze": ("ant_maze", "ant_maze_rnn_400M.npz", 300, (0, 0)),
+               "maze_port": ("ant_maze", "ant_maze_rnn_400M_torch.npz", 300, (0, 0)),
                "heavenhell": ("ant_heavenhell", "ant_heavenhell_rnn_400M.npz", None, (0, 1))}
 
 
@@ -152,7 +155,7 @@ def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[i
     if not same:
         raise RuntimeError(f"{npz_path(name)}: the loaded parameters do not match their "
                            "checksum")
-    result = {"npz": npz_path(name), "epochs": ts.epochs, "checksum_ok": same,
+    result = {"npz": os.path.basename(npz_path(name)), "epochs": ts.epochs, "checksum_ok": same,
               "episodes": episodes, **evaluate(name, learner, ts, episodes, seeds, modes)}
     if html_out:
         result["html"] = render(name, learner, ts, html_out)
@@ -163,7 +166,7 @@ def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[i
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = parser.add_mutually_exclusive_group(required=True)
-    for flag in ("--gather", "--gather-bombmem", "--maze", "--heavenhell"):
+    for flag in ("--gather", "--gather-bombmem", "--maze", "--maze-port", "--heavenhell"):
         which.add_argument(flag, dest="name", action="store_const",
                            const=flag[2:].replace("-", "_"))
     parser.add_argument("--device", default=None)

@@ -102,14 +102,17 @@ def split_options(argv, *extra: str):
 class ProgressLog:
     """The progress of a run that resumes from `checkpoint_dir` across calls,
     kept beside its step dirs in `progress.jsonl`: a line {"call": env-steps
-    resumed from, "card": ...} where a call starts training, then one
+    resumed from, "card": ...} where a call starts training (and "seed" when
+    one is given: a dir whose log names another seed, or that holds step dirs
+    while no call of its log names this seed, raises, since its step dirs are
+    another run's), then one
     {"steps", "mean_reward", "t"} per progress report (`t`: seconds since the
     call started training). Opening the log drops the reports past the latest
     step dir: a cut call trains those epochs again. A curriculum adds one
     {"phase_end": visible radius, "steps", ...its replays' rates} where a
     phase's last step dir is replayed (`phase_end`, `phase_ends`)."""
 
-    def __init__(self, checkpoint_dir: str, card: Optional[str]):
+    def __init__(self, checkpoint_dir: str, card: Optional[str], seed: Optional[int] = None):
         os.makedirs(checkpoint_dir, exist_ok=True)
         self.path = os.path.join(checkpoint_dir, "progress.jsonl")
         latest = ckpt.latest_step_dir(checkpoint_dir)
@@ -118,8 +121,14 @@ class ProgressLog:
         if os.path.exists(self.path):
             with open(self.path) as f:
                 lines = [json.loads(line) for line in f if line.strip()]
+        named = {e["seed"] for e in lines if "call" in e and "seed" in e}
+        if seed is not None and (named - {seed} or (latest and seed not in named)):
+            raise ValueError(f"{checkpoint_dir} holds another run than seed {seed}'s (its log "
+                             f"names seeds {sorted(named)}): give each seed its own checkpoint "
+                             "dir")
         lines = [e for e in lines if e.get("steps", 0) <= resumed]
-        lines.append({"call": resumed, "card": card})
+        lines.append({"call": resumed, "card": card,
+                      **({} if seed is None else {"seed": seed})})
         self.lines = lines
         with open(self.path, "w") as f:
             f.writelines(json.dumps(e) + "\n" for e in lines)
@@ -152,14 +161,19 @@ class ProgressLog:
                 for e in self._reports() if "steps" in e]
 
     def calls(self) -> List[dict]:
-        """[{"from", "to", "train_s", "card"}]: the env-steps each call
-        trained that a later call kept, and its training's seconds up to its
-        last kept report; a call that kept none is left out."""
-        out = []
-        for e in self._reports():
-            if "call" in e:
-                out.append({"from": e["call"], "to": e["call"], "train_s": 0.0,
-                            "card": e["card"]})
-            else:
-                out[-1].update(to=e["steps"], train_s=e["t"])
-        return [c for c in out if c["to"] > c["from"]]
+        """`merged_calls` of this log."""
+        return merged_calls(self._reports())
+
+
+def merged_calls(reports: List[dict]) -> List[dict]:
+    """[{"from", "to", "train_s", "card"}] of a progress log's call and
+    report lines: the env-steps each call trained that a later call kept,
+    and its training's seconds up to its last kept report; a call that kept
+    none is left out."""
+    out = []
+    for e in reports:
+        if "call" in e:
+            out.append({"from": e["call"], "to": e["call"], "train_s": 0.0, "card": e["card"]})
+        else:
+            out[-1].update(to=e["steps"], train_s=e["t"])
+    return [c for c in out if c["to"] > c["from"]]

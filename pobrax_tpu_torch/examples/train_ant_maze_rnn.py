@@ -9,8 +9,19 @@ the host once, uploaded to the env's device, and read per env by a clipped
 bilinear lookup. Evaluation (`goal_rate_rnn`, `goal_rate_random`) reports
 the TRUE sparse goal rate on the unshaped env.
 
+Training saves its state to the checkpoint dir (`--checkpoint-dir PATH`,
+runs/ant_maze_rnn_ckpt unless named) every 50M env-steps and at the end, as
+JAX's example does; the same command run again resumes from the latest step
+dir (the envs and the cached autoreset's clock restart, and the epoch count
+is folded into the key). `progress.jsonl` there keeps the curve, each call
+and its seed, so the record holds the curve of every call, `calls` (the
+env-steps each call trained, its training's seconds and the card), `wall_s`
+and `device`. Each seed needs its own dir: a dir whose log names another
+seed raises before anything trains.
+
 Usage: python -m pobrax_tpu_torch.examples.train_ant_maze_rnn [num_timesteps] [num_envs]
-       [--device cpu] [--out PATH]   (MAZE_SEED and MAZE_OUT as in JAX)
+       [--device cpu] [--out PATH] [--checkpoint-dir PATH]   (MAZE_SEED and MAZE_OUT as in
+       JAX; one checkpoint dir per MAZE_SEED)
 """
 
 from __future__ import annotations
@@ -23,9 +34,11 @@ import torch
 
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs, maze_utils
 from pobrax_tpu_torch.envs.base import Env, State, Wrapper
-from pobrax_tpu_torch.examples._common import (env_int, run_episodes, run_path, split_options,
-                                               uniform_actions, write_json)
+from pobrax_tpu_torch.device import resolve
+from pobrax_tpu_torch.examples._common import (ProgressLog, env_int, run_episodes, run_path,
+                                               split_options, uniform_actions, write_json)
 from pobrax_tpu_torch.training import ppo_rnn
+from pobrax_tpu_torch.utils.profiling import record_device
 
 HIDDEN = 128
 # examples/train_ant_maze_rnn.py's ppo_rnn.train arguments but the env, the
@@ -107,14 +120,20 @@ def goal_rate_random(env_core: Env, episodes: int = 256, episode_length: int = 1
 
 def main(num_timesteps: int = 400_000_000, num_envs: int = 2048,
          checkpoint_dir: Optional[str] = None, device=None, out: Optional[str] = None) -> dict:
-    """`checkpoint_dir`: runs/ant_maze_rnn_ckpt unless named."""
+    """`checkpoint_dir`: runs/ant_maze_rnn_ckpt unless named; its progress
+    log must name no seed but MAZE_SEED."""
     seed = env_int("MAZE_SEED", 0)
+    checkpoint_dir = checkpoint_dir or run_path("ant_maze_rnn_ckpt")
+    dev = resolve(device)
+    card = record_device(dev)["card"]
+    log = ProgressLog(checkpoint_dir, card, seed=seed)
     rand = goal_rate_random(_envs["ant_maze"](device=device), action_repeat=HAI_ACTION_REPEAT)
     print(f"random-policy goal rate: {rand:.3f}", flush=True)
 
-    history = []
+    history = log.curve()
 
     def progress(steps, metrics):
+        log(steps, metrics)
         history.append({"steps": steps, "mean_reward": metrics.get("mean_reward")})
         if len(history) % 20 == 0:
             print(f"  {steps:>12,} steps  mean_reward={history[-1]['mean_reward']:+.4f}",
@@ -122,8 +141,7 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 2048,
 
     inference_fn, params, _ = ppo_rnn.train(
         ShapedAntMaze(_envs["ant_maze"](device=device), coef=5.0),
-        num_timesteps=num_timesteps, num_envs=num_envs,
-        checkpoint_dir=checkpoint_dir or run_path("ant_maze_rnn_ckpt"),
+        num_timesteps=num_timesteps, num_envs=num_envs, checkpoint_dir=checkpoint_dir,
         checkpoint_every=50_000_000, seed=seed, progress_fn=progress, **RECIPE)
 
     results = {}
@@ -136,6 +154,12 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 2048,
     payload = {"num_timesteps": num_timesteps, "num_envs": num_envs, "hidden_size": HIDDEN,
                "seed": seed, "random_goal_rate": rand, "results": results,
                "curve": history[::10]}
+    calls = log.calls()
+    if calls:  # a learner that reported nothing leaves JAX's record as it is
+        payload.update(device=card or str(dev), calls=calls,
+                       wall_s=sum(c["train_s"] for c in calls))
+        print(f"trained {history[-1]['steps']:,} env-steps over {len(calls)} call(s) in "
+              f"{payload['wall_s']:.1f} s; {payload['device']}", flush=True)
     out = out or os.environ.get(
         "MAZE_OUT", run_path("learning_ant_maze_rnn" + (f"_seed{seed}" if seed != 0 else "")
                              + ".json"))
@@ -144,5 +168,5 @@ def main(num_timesteps: int = 400_000_000, num_envs: int = 2048,
 
 
 if __name__ == "__main__":
-    args, device, out = split_options(sys.argv[1:])
-    main(*[int(a) for a in args[:2]], device=device, out=out)
+    args, device, out, checkpoint_dir = split_options(sys.argv[1:], "--checkpoint-dir")
+    main(*[int(a) for a in args[:2]], checkpoint_dir=checkpoint_dir, device=device, out=out)

@@ -4,16 +4,18 @@ JAX package's orbax checkpoints.
 
 Restores the latest `step_*` directory under CKPT_DIR (the layout of
 `training/checkpoint.save_step`: the `--checkpoint-dir` of
-`examples.train_heavenhell_rnn`, or with `--tag` of
-`examples.train_ant_tag_rnn --curriculum`) into the learner that
+`examples.train_heavenhell_rnn`, with `--tag` of
+`examples.train_ant_tag_rnn --curriculum`, with `--maze` of
+`examples.train_ant_maze_rnn`) into the learner that
 `eval_checkpoint.load("heavenhell")` builds (with `--tag`,
-`eval_tag_checkpoint.load`'s AntTag GRU-PPO learner), and writes
+`eval_tag_checkpoint.load`'s AntTag GRU-PPO learner; with `--maze`,
+`eval_checkpoint.load("maze")`'s AntMaze one), and writes
 `interop.training_state_to_numpy` of it, each leaf under its '/'-joined
 path (params, opt_state/{count,mu,nu}, normalizer, epochs), plus
 `params_sha256` (`interop.params_checksum`).
 
 Usage: python -m pobrax_tpu_torch.tools.export_run_checkpoint CKPT_DIR OUT.npz
-       [--tag] [--device cpu]
+       [--tag | --maze] [--device cpu]   (at most one of --tag and --maze)
 (the card unless a device is named)
 """
 
@@ -43,17 +45,18 @@ def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, np.ndarray]]
         yield "/".join(path), np.asarray(tree)
 
 
-def learner_for(tag: bool, device=None) -> ppo_rnn.RNNPPOLearner:
-    """The learner a run's state restores into: AntTag's (`tag`) or
-    HeavenHell's, both at the examples' widths."""
-    if tag:
+def learner_for(name: str, device=None) -> ppo_rnn.RNNPPOLearner:
+    """The learner a run's state restores into, at the examples' widths:
+    AntTag's for "tag", else `eval_checkpoint.learner_for(name)` ("heavenhell"
+    or "maze")."""
+    if name == "tag":
         return ppo_rnn.RNNPPOLearner(AntTagEnv(device=resolve(device)), ppo_rnn.ANT_TAG)
-    return eval_checkpoint.learner_for("heavenhell", device)
+    return eval_checkpoint.learner_for(name, device)
 
 
-def arrays(ckpt_dir: str, device=None, tag: bool = False) -> Dict[str, np.ndarray]:
+def arrays(ckpt_dir: str, device=None, name: str = "heavenhell") -> Dict[str, np.ndarray]:
     """The npz's entries for the latest state saved under `ckpt_dir`."""
-    learner = learner_for(tag, device)
+    learner = learner_for(name, device)
     ts = ckpt.restore(ckpt.latest_step_dir(ckpt_dir) or ckpt_dir,
                       template=learner.init(jr.PRNGKey(0, learner.device)))
     tree = interop.training_state_to_numpy(ts)
@@ -62,8 +65,8 @@ def arrays(ckpt_dir: str, device=None, tag: bool = False) -> Dict[str, np.ndarra
     return out
 
 
-def export(ckpt_dir: str, out: str, device=None, tag: bool = False) -> None:
-    entries = arrays(ckpt_dir, device, tag)
+def export(ckpt_dir: str, out: str, device=None, name: str = "heavenhell") -> None:
+    entries = arrays(ckpt_dir, device, name)
     np.savez(make_parent(out), **entries)
     print(f"wrote {out}: {len(entries) - 1} leaves, epochs {int(entries['epochs'])}, "
           f"{os.path.getsize(out)} bytes, params sha256 {entries['params_sha256']}", flush=True)
@@ -71,4 +74,9 @@ def export(ckpt_dir: str, out: str, device=None, tag: bool = False) -> None:
 
 if __name__ == "__main__":
     args, device, _ = split_options(sys.argv[1:])
-    export(*[a for a in args if a != "--tag"][:2], device=device, tag="--tag" in args)
+    flags = ("--tag", "--maze")
+    names = [a[2:] for a in args if a in flags]
+    if len(names) > 1:
+        sys.exit("export_run_checkpoint: give --tag or --maze, not both")
+    export(*[a for a in args if a not in flags][:2], device=device,
+           name=(names or ["heavenhell"])[0])

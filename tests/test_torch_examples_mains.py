@@ -541,23 +541,39 @@ def _pendulum_learners(monkeypatch, seen):
     return per_epoch
 
 
-@pytest.mark.parametrize("example", ["heavenhell", "pendulum"])
+@pytest.mark.parametrize("example", ["heavenhell", "pendulum", "maze"])
 def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
     """Each example run twice into one `checkpoint_dir`: the second call,
     with a larger budget, resumes from the first's step dir and trains only
     the rest; the record's `calls` say which call trained which env-steps.
-    HeavenHell trains for real at 16 envs, one epoch a call (its evaluators
-    at 4 episodes of 5 steps); the pendulum's learners are `_pendulum_learners`, and each of its
+    HeavenHell and the maze train for real at 16 envs, one epoch a call (their
+    evaluators at 4 episodes of 5 steps; the maze with its recipe's cached
+    autoreset at an unroll of 8, at MAZE_SEED=1, and then refusing the dir
+    to seed 0); the
+    pendulum's learners are `_pendulum_learners`, and each of its
     three arms gets its own subdirectory, `CHECKPOINT_EVERY` and
     `ProgressLog` there."""
     root = str(tmp_path / "ckpt")
+    if example in ("heavenhell", "maze"):
+        dirs = {"": root}
     if example == "heavenhell":
+        per_epoch = 16 * 32 * 6
         monkeypatch.setattr(train_heavenhell_rnn, "outcome_rates",
                             functools.partial(train_heavenhell_rnn.outcome_rates, episodes=4,
                                               episode_length=5))
-        per_epoch = 16 * 32 * 6
-        dirs = {"": root}
         run = functools.partial(train_heavenhell_rnn.main, num_envs=16, device="cpu",
+                                checkpoint_dir=root)
+    elif example == "maze":
+        monkeypatch.setenv("MAZE_SEED", "1")
+        for name in ("goal_rate_rnn", "goal_rate_random"):
+            monkeypatch.setattr(train_ant_maze_rnn, name,
+                                functools.partial(getattr(train_ant_maze_rnn, name), episodes=4,
+                                                  episode_length=5))
+        assert train_ant_maze_rnn.RECIPE["autoreset_mode"] == "cached"
+        monkeypatch.setitem(train_ant_maze_rnn.RECIPE, "epochs_per_call", 1)
+        monkeypatch.setitem(train_ant_maze_rnn.RECIPE, "unroll_length", 8)
+        per_epoch = 16 * 8 * 6
+        run = functools.partial(train_ant_maze_rnn.main, num_envs=16, device="cpu",
                                 checkpoint_dir=root)
     else:
         monkeypatch.setattr(train_masked_pendulum, "mean_length", lambda *a, **k: 3.0)
@@ -578,7 +594,7 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
     for arm, path in dirs.items():
         assert torch.load(os.path.join(path, f"step_{second:012d}", "state.pt"),
                           weights_only=True)["epochs"] == second // per_epoch
-    calls = {"": two["calls"]} if example == "heavenhell" else two["calls"]
+    calls = two["calls"] if example == "pendulum" else {"": two["calls"]}
     assert set(calls) == set(dirs)
     for arm_calls in calls.values():
         assert [(c["from"], c["to"], c["card"]) for c in arm_calls] == [(0, first, None),
@@ -590,6 +606,22 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
         assert [e["steps"] for e in two["curve"]] == list(range(per_epoch, second + 1, per_epoch))
         assert two["wall_s"] == pytest.approx(sum(c["train_s"] for c in two["calls"]))
         assert two["device"] == "cpu"
+    elif example == "maze":
+        # the record samples every tenth report, as JAX's; the log keeps them all
+        assert [e["steps"] for e in one["curve"]] == [per_epoch]
+        assert two["curve"] == one["curve"]
+        with open(os.path.join(root, "progress.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        assert [e["steps"] for e in log if "steps" in e] == [per_epoch, second]
+        assert [e.get("seed") for e in log if "call" in e] == [1, 1]
+        assert (one["seed"], two["seed"]) == (1, 1)
+        assert two["wall_s"] == pytest.approx(sum(c["train_s"] for c in two["calls"]))
+        assert two["device"] == "cpu"
+        monkeypatch.setenv("MAZE_SEED", "0")  # seed 1's dir: refused before anything trains
+        with pytest.raises(ValueError, match="seed"):
+            run(3 * per_epoch, out=str(tmp_path / "3.json"))
+        assert step_dirs() == {"": [f"step_{first:012d}", f"step_{second:012d}"]}
+        assert not os.path.exists(tmp_path / "3.json")
     else:
         assert [(kw["checkpoint_dir"], kw["checkpoint_every"]) for kw in seen] == 2 * [
             (dirs[arm], train_masked_pendulum.CHECKPOINT_EVERY) for arm in dirs]
@@ -623,3 +655,24 @@ def test_progress_log_merges_calls(tmp_path):
     os.makedirs(os.path.join(root, f"step_{40:012d}"))
     ProgressLog(root, "card C")  # a call that trains nothing more is left out of `calls`
     assert [(c["from"], c["to"]) for c in ProgressLog(root, None).calls()] == [(0, 20), (20, 40)]
+
+
+@pytest.mark.parametrize("before", ["another_seed", "no_log"])
+def test_progress_log_refuses_another_seeds_dir(tmp_path, before):
+    """A log opened for a seed refuses a dir whose log names another seed,
+    and a dir of step dirs that no call of its seed saved (one trained before
+    its log named seeds), and leaves the dir as it was."""
+    root = str(tmp_path / "ckpt")
+    if before == "another_seed":
+        ProgressLog(root, None, seed=0)(20, {"mean_reward": 1.0})
+    os.makedirs(os.path.join(root, f"step_{20:012d}"))
+    log_path = os.path.join(root, "progress.jsonl")
+    kept = open(log_path).read() if before == "another_seed" else None
+    with pytest.raises(ValueError, match="seed 1"):
+        ProgressLog(root, None, seed=1)
+    assert (open(log_path).read() if os.path.exists(log_path) else None) == kept
+    # the dir's own seed resumes it; a log that names no seed opens any dir
+    if before == "another_seed":
+        assert [e["steps"] for e in ProgressLog(root, None, seed=0).curve()] == [20]
+    else:
+        assert ProgressLog(root, None).curve() == []

@@ -116,7 +116,7 @@ def test_export_tool_writes_a_saved_state(tmp_path):
     _, _, _, ts, _ = _pair()
     ckpt.save_step(str(tmp_path / "ckpt"), 123, ts)
     out = str(tmp_path / "out" / "tag.npz")
-    export_run_checkpoint.export(str(tmp_path / "ckpt"), out, device="cpu", tag=True)
+    export_run_checkpoint.export(str(tmp_path / "ckpt"), out, device="cpu", name="tag")
     _, back, same = eval_tag_checkpoint.load(out, device="cpu")
     assert same and back.epochs == ts.epochs
     want, got = _flat(interop.training_state_to_numpy(ts)), _flat(

@@ -16,12 +16,15 @@ package's `tools/`, on the CPU at small sizes.
   * `overlap_study`'s `chain` and `mm` equal JAX's at a small size;
   * `paired_seeds` reads both column layouts and its sign-flip p-value is
     the exact share of sign assignments;
+  * `curve_levels` reads a record and a progress log of two calls (one cut
+    after its save) into the same crossings, ratios and per-call pace;
   * every timing entry point raises without a card when no device is named.
 """
 
 import dataclasses
 import itertools
 import json
+import os
 
 import jax
 import numpy as np
@@ -32,9 +35,10 @@ from pobrax_tpu.envs.ant_tag import AntTagEnv as JAntTag
 from pobrax_tpu_torch import bench, bench_scaling
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, wrappers
+from pobrax_tpu_torch.examples._common import ProgressLog
 from pobrax_tpu_torch.tools import (ablate_bench, ant_speed_probe, autoreset_study,
-                                    bench_substeps, bench_train, overlap_study, paired_seeds,
-                                    per_study,
+                                    bench_substeps, bench_train, curve_levels, overlap_study,
+                                    paired_seeds, per_study,
                                     render_gather_policy, render_maze_policy, roofline,
                                     substeps_probe)
 from tests.test_torch_kernel_host import host_lib, host_step  # noqa: F401
@@ -161,6 +165,36 @@ def test_paired_seeds_reads_both_layouts_and_tests_exactly(tmp_path):
     sums = [abs(sum(sg * d for sg, d in zip(signs, (0.2, 0.1, -0.3, 0.4))))
             for signs in itertools.product((-1, 1), repeat=4)]
     assert out["p_sign_flip"] == pytest.approx(np.mean([x >= 0.4 - 1e-12 for x in sums]))
+
+
+def test_curve_levels_reads_records_and_progress_logs(tmp_path):
+    per_epoch = curve_levels.STEPS_PER_EPOCH
+    rewards = [0.1, 0.6, 0.4, 1.2, 2.5, 3.1]
+    root = str(tmp_path / "run")
+    log = ProgressLog(root, "card", seed=0)
+    for i, r in enumerate(rewards[:4]):
+        log((i + 1) * per_epoch, {"mean_reward": r})
+    os.makedirs(os.path.join(root, f"step_{3 * per_epoch:012d}"))  # the call is cut after 300
+    log = ProgressLog(root, "card", seed=0)
+    for i, r in enumerate(rewards[3:], start=3):
+        log((i + 1) * per_epoch, {"mean_reward": r})
+    calls = log.calls()
+    record = tmp_path / "record.json"
+    record.write_text(json.dumps({"curve": log.curve(), "calls": calls}))
+    ref = tmp_path / "ref.json"
+    ref.write_text(json.dumps({"curve": [{"steps": per_epoch // 2, "mean_reward": 0.5},
+                                         {"steps": 4 * per_epoch, "mean_reward": 3.0}]}))
+    out = curve_levels.main([str(record), log.path, "--ref", str(ref)])
+    assert out[0]["crossings"] == out[1]["crossings"] == {
+        "0.5": 2 * per_epoch, "1.0": 4 * per_epoch, "2.0": 5 * per_epoch, "3.0": 6 * per_epoch}
+    assert out[0]["ratio_to_ref"] == {"0.5": 4.0, "1.0": 1.0, "2.0": 1.25, "3.0": 1.5}
+    assert out[0]["last"] == {"steps": 6 * per_epoch, "mean_reward": 3.1}
+    assert out[0]["calls"] == out[1]["calls"]
+    assert [(c["from"], c["to"], c["epochs"]) for c in out[1]["calls"]] == [
+        (0, 3 * per_epoch, 3), (3 * per_epoch, 6 * per_epoch, 3)]
+    for got, c in zip(out[1]["calls"], calls):
+        assert got["s_per_epoch"] == pytest.approx(c["train_s"] / 3)
+        assert got["env_steps_per_s"] == pytest.approx(3 * per_epoch / c["train_s"])
 
 
 ENTRY_POINTS = {
