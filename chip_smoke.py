@@ -174,11 +174,12 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      each boundary, epochs saved 1, 2, 3, 32 launches an epoch, finite
      losses, moved parameters), then its true-env tag rates on 256 episodes,
      det and stoch, reported; (b) `eval_checkpoint.main` of the gather (800M
-     and bombmem02 1B) and maze checkpoints and the port-trained HeavenHell
-     and maze ones: checksums, the maze's det goal rate gated at 0.95 (the
-     port-trained maze's at its record's less PORT_TAG_MARGIN), gather's
-     apples and net and HeavenHell's completion and heaven rates (det seed
-     0, stoch seed 1) gated at REPLAY_GATES; (c)
+     and bombmem02 1B) and maze checkpoints and the port-trained HeavenHell,
+     maze and gather ones: checksums, the maze's det goal rate gated at 0.95
+     (the port-trained maze's at its record's less PORT_TAG_MARGIN), gather's
+     apples and net (the port-trained gather's at its record's less
+     PORT_GATHER_MARGIN) and HeavenHell's completion and heaven rates (det
+     seed 0, stoch seed 1) gated at REPLAY_GATES; (c)
      `train_ant_gather_rnn.main_curriculum` at the bombmem02 recipe (sensor
      14 -> 6 -> 6, novelty 0.25, 0.25, 0, bomb memory 0.2), one call of 8
      epochs a phase, and its gather_eval; (d) `train_ant_maze_rnn.main`: the
@@ -447,6 +448,16 @@ OPS_RTOL = OPS_ATOL = 1e-6
 # the card, so its gate is that record's det goal rate less PORT_TAG_MARGIN,
 # as the port-trained AntTag policy's is
 PORT_MAZE_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs", "learning_ant_maze_rnn.json")
+# The gather policy the port trained (the sensor-range curriculum, seed 0,
+# `export_run_checkpoint --gather`) replays its run's own evaluation too (the
+# same state, 256 episodes and reset seed 0 on the card), so each gate is
+# that record's det / stoch apples and net less PORT_GATHER_MARGIN: should
+# the card's arithmetic part the episodes, a 256-episode mean moves by about
+# an episode's spread over 16 (SD_EPISODE in
+# tests/test_torch_gather_checkpoint.py), and the margin is two such moves
+PORT_GATHER_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs",
+                                  "learning_gather_rnn_curriculum.json")
+PORT_GATHER_MARGIN = 0.3
 
 
 def _record_det(path: str) -> float:
@@ -454,11 +465,21 @@ def _record_det(path: str) -> float:
         return json.load(f)["results"]["det"]
 
 
+def _gather_gates(path: str, margin: float) -> dict:
+    """A gather record's det and stoch apples and net, each less `margin`."""
+    with open(path) as f:
+        results = json.load(f)["results"]
+    return {f"{mode}_{k}": v - margin for mode in ("det", "stoch")
+            for k, v in (("apples", results[mode]["apples"]),
+                         ("net", results[mode]["apples"] - results[mode]["bombs"]))}
+
+
 REPLAY_GATES = {
     "gather": {"det_apples": 5.3, "det_net": 2.1, "stoch_apples": 5.7, "stoch_net": 2.0},
     "gather_bombmem": {"det_apples": 4.5, "det_net": 1.7, "stoch_apples": 6.0, "stoch_net": 2.2},
     "maze": {"det_goal_rate": 0.95},
     "maze_port": {"det_goal_rate": _record_det(PORT_MAZE_RECORD) - PORT_TAG_MARGIN},
+    "gather_port": _gather_gates(PORT_GATHER_RECORD, PORT_GATHER_MARGIN),
     "heavenhell": {"det_completion": 0.95, "det_heaven": 0.95, "stoch_completion": 0.95,
                    "stoch_heaven": 0.95}}
 

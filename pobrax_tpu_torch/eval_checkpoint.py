@@ -6,8 +6,10 @@ checkpoints/ant_gather_rnn_800M (`--gather`), ant_gather_rnn_bombmem02_1B
 (`--gather-bombmem`) or ant_maze_rnn_400M (`--maze`), or a policy the port
 itself trained, written by `pobrax_tpu_torch.tools.export_run_checkpoint`:
 at examples/train_heavenhell_rnn.py's recipe (ant_heavenhell_rnn_400M,
-`--heavenhell`) or at examples/train_ant_maze_rnn.py's, seed 0
-(ant_maze_rnn_400M_torch, `--maze-port`), checks the loaded
+`--heavenhell`), at examples/train_ant_maze_rnn.py's, seed 0
+(ant_maze_rnn_400M_torch, `--maze-port`), or at the sensor-range
+curriculum of examples/train_ant_gather_rnn.py, seed 0
+(ant_gather_rnn_800M_torch, `--gather-port`), checks the loaded
 parameters against the checksum stored beside them, and reports the
 example's own evaluator on 256 episodes under ActionRepeat(6) ->
 Episode(1000) -> Vmap, deterministic and stochastic, as the examples
@@ -22,7 +24,7 @@ of tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
 takes no `--html`.
 
 Usage: python -m pobrax_tpu_torch.eval_checkpoint
-       --gather|--gather-bombmem|--maze|--maze-port|--heavenhell [--device cpu]
+       --gather|--gather-port|--gather-bombmem|--maze|--maze-port|--heavenhell [--device cpu]
        [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
 (the card unless a device is named)
 """
@@ -52,6 +54,7 @@ _DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 # name -> (env, npz, frames of the rendered episode (None: no renderer),
 #          reset seeds of the det and stoch evaluations, as the example's main)
 CHECKPOINTS = {"gather": ("ant_gather", "ant_gather_rnn_800M.npz", 500, (0, 0)),
+               "gather_port": ("ant_gather", "ant_gather_rnn_800M_torch.npz", 500, (0, 0)),
                "gather_bombmem": ("ant_gather", "ant_gather_rnn_bombmem02_1B.npz", 500, (0, 0)),
                "maze": ("ant_maze", "ant_maze_rnn_400M.npz", 300, (0, 0)),
                "maze_port": ("ant_maze", "ant_maze_rnn_400M_torch.npz", 300, (0, 0)),
@@ -166,7 +169,8 @@ def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[i
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = parser.add_mutually_exclusive_group(required=True)
-    for flag in ("--gather", "--gather-bombmem", "--maze", "--maze-port", "--heavenhell"):
+    for flag in ("--gather", "--gather-port", "--gather-bombmem", "--maze", "--maze-port",
+                 "--heavenhell"):
         which.add_argument(flag, dest="name", action="store_const",
                            const=flag[2:].replace("-", "_"))
     parser.add_argument("--device", default=None)

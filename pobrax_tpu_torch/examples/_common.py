@@ -66,6 +66,13 @@ def run_episodes(env_core: Env, act_fn: Callable, carry, observe: Callable[[Stat
     return first
 
 
+def phase_end(total: int, per_call: int) -> int:
+    """The env-steps where a curriculum phase of cumulative budget `total`
+    ends: its last call of `per_call` env-steps (an epoch's, or a call's of
+    `epochs_per_call` epochs) is whole, as the learners' `train` runs it."""
+    return -(-total // per_call) * per_call
+
+
 def make_parent(path: str) -> str:
     """Makes `path`'s directory; returns `path`."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -105,14 +112,17 @@ class ProgressLog:
     resumed from, "card": ...} where a call starts training (and "seed" when
     one is given: a dir whose log names another seed, or that holds step dirs
     while no call of its log names this seed, raises, since its step dirs are
-    another run's), then one
+    another run's; "recipe" likewise, for an example whose training knobs a
+    call may change), then one
     {"steps", "mean_reward", "t"} per progress report (`t`: seconds since the
     call started training). Opening the log drops the reports past the latest
     step dir: a cut call trains those epochs again. A curriculum adds one
-    {"phase_end": visible radius, "steps", ...its replays' rates} where a
-    phase's last step dir is replayed (`phase_end`, `phase_ends`)."""
+    {"phase_end": the phase's knob (AntTag's visible radius, AntGather's
+    sensor range), "steps", ...its replays' results} where a phase's last
+    step dir is replayed (`phase_end`, `phase_ends`)."""
 
-    def __init__(self, checkpoint_dir: str, card: Optional[str], seed: Optional[int] = None):
+    def __init__(self, checkpoint_dir: str, card: Optional[str], seed: Optional[int] = None,
+                 recipe: Optional[dict] = None):
         os.makedirs(checkpoint_dir, exist_ok=True)
         self.path = os.path.join(checkpoint_dir, "progress.jsonl")
         latest = ckpt.latest_step_dir(checkpoint_dir)
@@ -126,9 +136,17 @@ class ProgressLog:
             raise ValueError(f"{checkpoint_dir} holds another run than seed {seed}'s (its log "
                              f"names seeds {sorted(named)}): give each seed its own checkpoint "
                              "dir")
+        if recipe is not None:
+            recipe = json.loads(json.dumps(recipe))  # as the log holds it: lists, not tuples
+            named = [e["recipe"] for e in lines if "call" in e and "recipe" in e]
+            if any(r != recipe for r in named) or (latest and not named):
+                raise ValueError(f"{checkpoint_dir} holds another run than recipe {recipe}'s "
+                                 f"(its log names {named}): train it with the knobs it was "
+                                 "started with, or give this recipe its own checkpoint dir")
         lines = [e for e in lines if e.get("steps", 0) <= resumed]
         lines.append({"call": resumed, "card": card,
-                      **({} if seed is None else {"seed": seed})})
+                      **({} if seed is None else {"seed": seed}),
+                      **({} if recipe is None else {"recipe": recipe})})
         self.lines = lines
         with open(self.path, "w") as f:
             f.writelines(json.dumps(e) + "\n" for e in lines)
@@ -144,13 +162,20 @@ class ProgressLog:
         with open(self.path, "a") as f:
             f.write(json.dumps(entry) + "\n")
 
-    def phase_end(self, radius: float, steps: int, **rates: float) -> None:
+    def phase_end(self, knob: float, steps: int, **rates: float) -> None:
         """Logs the replays of a curriculum phase's last step dir."""
-        self._append({"phase_end": radius, "steps": steps, **rates})
+        self._append({"phase_end": knob, "steps": steps, **rates})
 
     def phase_ends(self) -> List[dict]:
         """The `phase_end` entries logged so far."""
         return [e for e in self.lines if "phase_end" in e]
+
+    def phase_end_due(self, steps: int) -> bool:
+        """Whether a phase that ends at `steps` awaits its replays: its step
+        dir is the latest, and no phase end at `steps` is logged."""
+        root = os.path.dirname(self.path)
+        return (ckpt.latest_step_dir(root) == os.path.join(root, f"step_{steps:012d}")
+                and all(e["steps"] != steps for e in self.phase_ends()))
 
     def _reports(self) -> List[dict]:
         return [e for e in self.lines if "phase_end" not in e]
@@ -163,6 +188,14 @@ class ProgressLog:
     def calls(self) -> List[dict]:
         """`merged_calls` of this log."""
         return merged_calls(self._reports())
+
+
+def log_keys(log: ProgressLog, card: Optional[str]) -> dict:
+    """What a resumable run's record adds to JAX's keys, from its log (the
+    curve of every call's reports)."""
+    calls = log.calls()
+    return {"phase_ends": log.phase_ends(), "curve": log.curve(), "calls": calls,
+            "wall_s": sum(c["train_s"] for c in calls), "device": card or "cpu"}
 
 
 def merged_calls(reports: List[dict]) -> List[dict]:

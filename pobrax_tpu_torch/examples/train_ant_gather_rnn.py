@@ -19,10 +19,16 @@ GATHER_DEALIASED, GATHER_NOVELTY (a per-phase list), GATHER_BOMB_MEMORY,
 GATHER_BOMB_COEF, GATHER_SEED, GATHER_GAMMA and GATHER_OUT, read at the
 call (`gather_knobs`), not at import.
 
+`curriculum --checkpoint-dir PATH` keeps PATH and resumes it: the same
+command repeated trains the curriculum across calls and writes the record
+once the last phase ends. Each GATHER_SEED, and each setting of the knobs
+that shape training, needs its own PATH (a dir whose log names another seed
+or other knobs raises before anything trains).
+
 Usage: python -m pobrax_tpu_torch.examples.train_ant_gather_rnn [variant] [num_timesteps]
        [num_envs] [--device cpu] [--out PATH]
   variant: "mask" (catch mask only) | "bomb" (catch mask + bomb repulsion) |
-  "curriculum" (then [num_envs])
+  "curriculum" (then [num_envs] [--checkpoint-dir PATH])
 """
 
 from __future__ import annotations
@@ -31,18 +37,33 @@ import dataclasses
 import os
 import shutil
 import sys
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs
 from pobrax_tpu_torch.envs.base import Env, State, Wrapper
 from pobrax_tpu_torch.envs.exploration import GridNoveltyBonusWrapper
-from pobrax_tpu_torch.examples._common import (run_episodes, run_path, split_options,
-                                               uniform_actions, write_json)
+from pobrax_tpu_torch.device import resolve
+from pobrax_tpu_torch.examples._common import (ProgressLog, log_keys, phase_end, run_episodes,
+                                               run_path, split_options, uniform_actions,
+                                               write_json)
 from pobrax_tpu_torch.training import ppo_rnn
+from pobrax_tpu_torch.utils.profiling import record_device
 
 HIDDEN = 128
+# examples/train_ant_gather_rnn.py's main_curriculum's ppo_rnn.train
+# arguments but the env, the budget, the batch, the seed, the checkpoint dir
+# and the progress function
+RECIPE = dict(episode_length=1000, action_repeat=HAI_ACTION_REPEAT, unroll_length=32,
+              num_minibatches=8, num_update_epochs=4, learning_rate=3e-4, entropy_cost=3e-3,
+              discounting=0.97, reward_scaling=1.0, hidden_size=HIDDEN, encoder_sizes=(256,),
+              epochs_per_call=8, autoreset_mode="cached")
+CHECKPOINT_EVERY = 100_000_000  # the JAX example's
+# with `resume`: 24 calls of 8 epochs at 2048 envs (3,145,728 env-steps a
+# call), ~4-7 min of training on the H100, the most a cut call loses; a
+# whole number of calls, so a resumed phase ends where an uncut one does
+RESUME_CHECKPOINT_EVERY = 24 * 3_145_728
 
 
 class ShapedAntGather(Wrapper):
@@ -129,6 +150,14 @@ class GatherKnobs:
     def novelty_beta(self, phase_idx: int) -> float:
         return self.novelty[min(phase_idx, len(self.novelty) - 1)]
 
+    def recipe(self, num_envs: int) -> dict:
+        """What shapes `main_curriculum`'s training beside the seed (GATHER_GAMMA
+        and GATHER_OUT do not): a dir it resumes must have been trained with
+        the same."""
+        return {"num_envs": num_envs, "curriculum": self.curriculum,
+                "dealiased": self.dealiased, "novelty": self.novelty,
+                "bomb_memory": self.bomb_memory, "bomb_coef": self.bomb_coef}
+
 
 def gather_knobs(environ: Optional[dict] = None) -> GatherKnobs:
     """The knobs from `environ` (the process environment unless given):
@@ -199,22 +228,44 @@ def curriculum_out(knobs: GatherKnobs) -> str:
 
 def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
                     knobs: Optional[GatherKnobs] = None, device=None,
-                    out: Optional[str] = None) -> dict:
+                    out: Optional[str] = None, resume: bool = False) -> dict:
     """The sensor-range curriculum: phase i trains at its sensor range up to
     its cumulative budget on `_training_env(..., i)`, resuming the shared
     checkpoint in `checkpoint_dir` (emptied first; runs/ant_gather_rnn_ckpt
     unless named); then `gather_eval` det and stoch on the true env.
-    `knobs` default to `gather_knobs()`."""
+    `knobs` default to `gather_knobs()`.
+
+    With `resume` (the command line's `--checkpoint-dir`) the directory is
+    kept and the run goes on from its latest step dir, so the same call
+    repeated trains the curriculum across calls: a phase whose budget the
+    dir already covers trains nothing. It saves every
+    `RESUME_CHECKPOINT_EVERY` env-steps (save points change nothing in
+    training), logs each call in `ProgressLog` (which refuses a dir of
+    another GATHER_SEED or other knobs, `GatherKnobs.recipe`), replays the last step dir of every phase but the
+    last on the true env (`_evaluate`) into that log, and the record gains
+    `epochs`, `steps`, `calls`, `wall_s`, `device` and `phase_ends`; its
+    `curve` is every tenth report of every call."""
     knobs = knobs or gather_knobs()
     checkpoint_dir = checkpoint_dir or run_path("ant_gather_rnn_ckpt")
-    shutil.rmtree(checkpoint_dir, ignore_errors=True)
+    log = card = None
+    if resume:
+        card = record_device(resolve(device))["card"]
+        log = ProgressLog(checkpoint_dir, card, seed=knobs.seed, recipe=knobs.recipe(num_envs))
+    else:
+        shutil.rmtree(checkpoint_dir, ignore_errors=True)
     history = []
-    common = dict(num_envs=num_envs, episode_length=1000, action_repeat=HAI_ACTION_REPEAT,
-                  unroll_length=32, num_minibatches=8, num_update_epochs=4, learning_rate=3e-4,
-                  entropy_cost=3e-3, discounting=0.97, reward_scaling=1.0, hidden_size=HIDDEN,
-                  encoder_sizes=(256,), epochs_per_call=8, autoreset_mode="cached",
-                  seed=knobs.seed, checkpoint_dir=checkpoint_dir,
-                  checkpoint_every=100_000_000, progress_fn=_progress(history))
+    report = _progress(history)
+
+    def progress(steps, metrics):
+        if log is not None:
+            log(steps, metrics)
+        report(steps, metrics)
+
+    common = dict(num_envs=num_envs, seed=knobs.seed, checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=RESUME_CHECKPOINT_EVERY if resume else CHECKPOINT_EVERY,
+                  progress_fn=progress, **RECIPE)
+    per_call = num_envs * RECIPE["unroll_length"] * RECIPE["action_repeat"] * RECIPE[
+        "epochs_per_call"]
     inference_fn = params = None
     for phase_idx, (srange, total) in enumerate(knobs.curriculum):
         inference_fn, params, _ = ppo_rnn.train(
@@ -223,12 +274,25 @@ def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
                           knobs.bomb_coef, phase_idx, knobs),
             num_timesteps=total, **common)
         print(f"curriculum phase done: sensor_range={srange}", flush=True)
+        end = phase_end(total, per_call)
+        if log is not None and phase_idx < len(knobs.curriculum) - 1 and log.phase_end_due(end):
+            print(f"phase end {end:,} (sensor_range={srange}): TRUE env", flush=True)
+            results = _evaluate(inference_fn, params, knobs.env_kw, device)
+            log.phase_end(srange, end, **{f"{mode}_{k}": v for mode, r in results.items()
+                                          for k, v in r.items()})
     results = _evaluate(inference_fn, params, knobs.env_kw, device)
     payload = {"curriculum": [list(p) for p in knobs.curriculum], "num_envs": num_envs,
                "bomb_coef": knobs.bomb_coef, "seed": knobs.seed,
                "dealiased_sensor": knobs.dealiased, "novelty_beta": list(knobs.novelty),
                "bomb_memory": knobs.bomb_memory, "hidden_size": HIDDEN, "results": results,
                "curve": history[::10]}
+    if log is not None:
+        steps = phase_end(knobs.curriculum[-1][1], per_call)
+        per_epoch = per_call // RECIPE["epochs_per_call"]
+        payload.update(log_keys(log, card), epochs=steps // per_epoch, steps=steps)
+        payload["curve"] = payload["curve"][::10]  # every tenth report, as JAX's
+        print(f"trained {steps:,} env-steps over {len(payload['calls'])} call(s) in "
+              f"{payload['wall_s']:.1f} s; {payload['device']}", flush=True)
     write_json(out or knobs.out or curriculum_out(knobs), payload)
     return payload
 
@@ -258,10 +322,15 @@ def main(variant: str = "bomb", num_timesteps: int = 400_000_000, num_envs: int 
     return payload
 
 
-if __name__ == "__main__":
-    args, device, out = split_options(sys.argv[1:])
+def cli(argv: Sequence[str]):
+    """The command line (module docstring)."""
+    args, device, out, checkpoint_dir = split_options(argv, "--checkpoint-dir")
     variant = args[0] if args else "bomb"
     if variant == "curriculum":
-        main_curriculum(*[int(a) for a in args[1:2]], device=device, out=out)
-    else:
-        main(variant, *[int(a) for a in args[1:3]], out=out, device=device)
+        return main_curriculum(*[int(a) for a in args[1:2]], checkpoint_dir=checkpoint_dir,
+                               device=device, out=out, resume=checkpoint_dir is not None)
+    return main(variant, *[int(a) for a in args[1:3]], out=out, device=device)
+
+
+if __name__ == "__main__":
+    cli(sys.argv[1:])

@@ -34,8 +34,9 @@ import torch
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs
 from pobrax_tpu_torch.envs.base import Env
-from pobrax_tpu_torch.examples._common import (ProgressLog, env_int, run_episodes,
-                                               run_path, split_options, write_json)
+from pobrax_tpu_torch.examples._common import (ProgressLog, env_int, log_keys, phase_end,
+                                               run_episodes, run_path, split_options,
+                                               write_json)
 from pobrax_tpu_torch.examples.train_ant_tag import ShapedAntTag, random_act, tag_rate
 from pobrax_tpu_torch.training import checkpoint as ckpt
 from pobrax_tpu_torch.training import ppo_rnn
@@ -84,19 +85,6 @@ def true_rates(inference_fn, params, device=None) -> Tuple[float, float]:
 
 def steps_per_epoch(num_envs: int) -> int:
     return num_envs * RECIPE["unroll_length"] * RECIPE["action_repeat"]
-
-
-def phase_end(total: int, per_epoch: int) -> int:
-    """The env-steps where a phase of cumulative budget `total` ends: its
-    last epoch is whole, as `ppo_rnn.train` runs it."""
-    return -(-total // per_epoch) * per_epoch
-
-
-def log_keys(log: ProgressLog, card: Optional[str]) -> dict:
-    """What a resumable run's record adds to JAX's keys, from its log."""
-    calls = log.calls()
-    return {"phase_ends": log.phase_ends(), "curve": log.curve(), "calls": calls,
-            "wall_s": sum(c["train_s"] for c in calls), "device": card or "cpu"}
 
 
 def seed_checkpoint_dir(checkpoint_dir: str, npz: str, num_envs: int = 2048,
@@ -167,10 +155,7 @@ def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
             num_timesteps=total, **common)
         print(f"curriculum phase done: visible_radius={radius}", flush=True)
         end = phase_end(total, per_epoch)
-        latest = ckpt.latest_step_dir(checkpoint_dir)
-        if (log is not None and i < len(curriculum) - 1
-                and latest == os.path.join(checkpoint_dir, f"step_{end:012d}")
-                and all(e["steps"] != end for e in log.phase_ends())):
+        if log is not None and i < len(curriculum) - 1 and log.phase_end_due(end):
             det, stoch = true_rates(inference_fn, params, device)
             log.phase_end(radius, end, det=det, stoch=stoch)
             print(f"phase end {end:,} (visible_radius={radius}): TRUE-env tag rate det "

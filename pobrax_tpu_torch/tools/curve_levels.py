@@ -9,7 +9,10 @@ reaches each of LEVELS (None if it never does), the last point's reward, and
 for each call its epochs (a GRU-PPO epoch of the examples' recipes: 2048
 envs x 32 steps x action repeat 6), seconds an epoch and env-steps a second.
 With `--ref FILE` each line also holds, per level, its crossing over the
-reference's. No device, no jax.
+reference's. Each line also holds the mean `mean_reward` of the points in
+each of WINDOWS: AntGather's rewards sit near 0.1, under every level, and
+the JAX package's gather curriculum records are compared over these two.
+No device, no jax.
 
 Usage: python -m pobrax_tpu_torch.tools.curve_levels FILE ... [--ref FILE]
 """
@@ -24,6 +27,9 @@ from pobrax_tpu_torch.examples._common import merged_calls
 
 LEVELS = (0.5, 1.0, 2.0, 3.0)
 STEPS_PER_EPOCH = 2048 * 32 * 6
+# M env-steps: the last ~95M of each AntGather curriculum phase (14 m to
+# 400M, 6 m to 800M) on the JAX records' every-tenth grid
+WINDOWS = ((286, 381), (695, 790))
 
 
 def read(path: str) -> dict:
@@ -46,6 +52,16 @@ def crossings(curve: Sequence[dict]) -> Dict[str, Optional[int]]:
             for level in LEVELS}
 
 
+def window_means(curve: Sequence[dict]) -> Dict[str, Optional[float]]:
+    """{"LO:HI": the mean mean_reward of the points with LO <= steps / 1e6
+    <= HI, or None if none lies there} for each of WINDOWS."""
+    out = {}
+    for lo, hi in WINDOWS:
+        inside = [p["mean_reward"] for p in curve if lo <= p["steps"] / 1e6 <= hi]
+        out[f"{lo}:{hi}"] = sum(inside) / len(inside) if inside else None
+    return out
+
+
 def pace(calls: Sequence[dict]) -> List[dict]:
     """Each call's epochs, seconds an epoch and env-steps a second."""
     out = []
@@ -61,7 +77,8 @@ def pace(calls: Sequence[dict]) -> List[dict]:
 def summary(path: str, ref: Optional[str] = None) -> dict:
     run = read(path)
     out = {"file": path, "points": len(run["curve"]), "crossings": crossings(run["curve"]),
-           "last": run["curve"][-1], "calls": pace(run["calls"])}
+           "last": run["curve"][-1], "calls": pace(run["calls"]),
+           "window_means": window_means(run["curve"])}
     if ref is not None:
         theirs = crossings(read(ref)["curve"])
         out["ref"] = ref

@@ -6,16 +6,18 @@ Restores the latest `step_*` directory under CKPT_DIR (the layout of
 `training/checkpoint.save_step`: the `--checkpoint-dir` of
 `examples.train_heavenhell_rnn`, with `--tag` of
 `examples.train_ant_tag_rnn --curriculum`, with `--maze` of
-`examples.train_ant_maze_rnn`) into the learner that
+`examples.train_ant_maze_rnn`, with `--gather` of
+`examples.train_ant_gather_rnn curriculum`) into the learner that
 `eval_checkpoint.load("heavenhell")` builds (with `--tag`,
-`eval_tag_checkpoint.load`'s AntTag GRU-PPO learner; with `--maze`,
-`eval_checkpoint.load("maze")`'s AntMaze one), and writes
+`eval_tag_checkpoint.load`'s AntTag GRU-PPO learner; with `--maze` /
+`--gather`, `eval_checkpoint.load("maze")`'s AntMaze / `load("gather")`'s
+AntGather one), and writes
 `interop.training_state_to_numpy` of it, each leaf under its '/'-joined
 path (params, opt_state/{count,mu,nu}, normalizer, epochs), plus
 `params_sha256` (`interop.params_checksum`).
 
 Usage: python -m pobrax_tpu_torch.tools.export_run_checkpoint CKPT_DIR OUT.npz
-       [--tag | --maze] [--device cpu]   (at most one of --tag and --maze)
+       [--tag | --maze | --gather] [--device cpu]   (at most one of the three)
 (the card unless a device is named)
 """
 
@@ -47,8 +49,8 @@ def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, np.ndarray]]
 
 def learner_for(name: str, device=None) -> ppo_rnn.RNNPPOLearner:
     """The learner a run's state restores into, at the examples' widths:
-    AntTag's for "tag", else `eval_checkpoint.learner_for(name)` ("heavenhell"
-    or "maze")."""
+    AntTag's for "tag", else `eval_checkpoint.learner_for(name)` ("heavenhell",
+    "maze" or "gather")."""
     if name == "tag":
         return ppo_rnn.RNNPPOLearner(AntTagEnv(device=resolve(device)), ppo_rnn.ANT_TAG)
     return eval_checkpoint.learner_for(name, device)
@@ -74,9 +76,9 @@ def export(ckpt_dir: str, out: str, device=None, name: str = "heavenhell") -> No
 
 if __name__ == "__main__":
     args, device, _ = split_options(sys.argv[1:])
-    flags = ("--tag", "--maze")
+    flags = ("--tag", "--maze", "--gather")
     names = [a[2:] for a in args if a in flags]
     if len(names) > 1:
-        sys.exit("export_run_checkpoint: give --tag or --maze, not both")
+        sys.exit("export_run_checkpoint: give at most one of --tag, --maze and --gather")
     export(*[a for a in args if a not in flags][:2], device=device,
            name=(names or ["heavenhell"])[0])

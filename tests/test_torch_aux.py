@@ -24,6 +24,7 @@ from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.envs import _envs, create
 from pobrax_tpu_torch.envs.fast import Fast
 from pobrax_tpu_torch.io import html
+from pobrax_tpu_torch.parallel import health
 from pobrax_tpu_torch.parallel.health import Watchdog, ping
 from pobrax_tpu_torch.physics.state import QP
 from pobrax_tpu_torch.training import ppo, ppo_rnn, sac, sac_rnn
@@ -132,11 +133,34 @@ def test_watchdog_monitor_latches_stall():
 
 
 class _SlowFast(Fast):
-    """`fast` with every step 20 ms long: an epoch outlasts a 10 ms deadline."""
+    """`fast` with every step 20 ms long: an epoch outlasts a 10 ms deadline.
+    While a watchdog's monitor runs (`_Monitored`), each step also lasts
+    until that monitor has latched the stall: a loaded host may leave the
+    monitor thread unscheduled for the whole 20 ms, and the epoch's beat
+    would then come before any poll saw the deadline pass."""
 
     def step(self, state, action):
         time.sleep(0.02)
+        give_up = time.monotonic() + 30.0
+        while (any(not wd.stalled for wd in _Monitored.running)
+               and time.monotonic() < give_up):
+            time.sleep(0.005)
         return super().step(state, action)
+
+
+class _Monitored(health.Watchdog):
+    """The learners' Watchdog, keeping the ones whose monitor runs."""
+
+    running = []
+
+    def start_monitor(self, poll_s=None):
+        _Monitored.running.append(self)
+        return super().start_monitor(poll_s)
+
+    def stop_monitor(self):
+        super().stop_monitor()
+        if self in _Monitored.running:
+            _Monitored.running.remove(self)
 
 
 _SMALL = {
@@ -157,15 +181,18 @@ def _watchdog_threads():
 
 
 @pytest.mark.parametrize("learner", sorted(_SMALL))
-def test_train_raises_on_stalled_epoch(learner):
+def test_train_raises_on_stalled_epoch(learner, monkeypatch):
     """Each learner's `train` wires the watchdog: an epoch slower than the
     deadline raises at its beat, and the monitor thread is stopped; with
-    `watchdog_deadline_s=None` the same run completes with no monitor."""
+    `watchdog_deadline_s=None` the same run completes with no monitor. The
+    epoch lasts until the monitor has latched the stall (`_SlowFast`), so
+    the outcome does not hang on when the host schedules that thread."""
+    monkeypatch.setattr(health, "Watchdog", _Monitored)
     module, kw = _SMALL[learner]
     with pytest.raises(TimeoutError):
         module.train(_SlowFast(device="cpu"), num_timesteps=1, watchdog_deadline_s=0.01,
                      progress_fn=lambda s, m: None, **kw)
-    assert not _watchdog_threads()
+    assert not _watchdog_threads() and not _Monitored.running
     seen = []
     module.train(_SlowFast(device="cpu"), num_timesteps=1, watchdog_deadline_s=None,
                  progress_fn=lambda s, m: seen.append(_watchdog_threads()), **kw)
