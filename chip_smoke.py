@@ -179,7 +179,10 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      (the port-trained maze's at its record's less PORT_TAG_MARGIN), gather's
      apples and net (the port-trained gather's at its record's less
      PORT_GATHER_MARGIN) and HeavenHell's completion and heaven rates (det
-     seed 0, stoch seed 1) gated at REPLAY_GATES; (c)
+     seed 0, stoch seed 1) gated at REPLAY_GATES; then
+     `eval_checkpoint.main("masked_ant_port")`, the three masked-ant arms the
+     port trained: checksums, each det episode reward gated at its record's
+     less PORT_MASKED_ANT_MARGIN of it, FF full above both masked arms; (c)
      `train_ant_gather_rnn.main_curriculum` at the bombmem02 recipe (sensor
      14 -> 6 -> 6, novelty 0.25, 0.25, 0, bomb memory 0.2), one call of 8
      epochs a phase, and its gather_eval; (d) `train_ant_maze_rnn.main`: the
@@ -458,6 +461,17 @@ PORT_MAZE_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs", "learning_ant_
 PORT_GATHER_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs",
                                   "learning_gather_rnn_curriculum.json")
 PORT_GATHER_MARGIN = 0.3
+# The masked-ant arms the port trained (`export_run_checkpoint --masked-ant`)
+# replay their run's own evaluations too (each arm's state, 256 episodes of
+# up to 1,000 steps, reset seed 0, det, on the card), so each gate is the
+# record's episode reward less PORT_MASKED_ANT_MARGIN of it: should the
+# card's arithmetic part the episodes, a 256-episode mean moves by about an
+# episode's spread over 16; a walking ant's episode rewards spread by up to
+# ~25% of their mean (a fall ends an episode early), so a mean by ~1.6%,
+# and the margin is two such moves, 3%
+PORT_MASKED_ANT_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs",
+                                      "learning_masked_ant.json")
+PORT_MASKED_ANT_MARGIN = 0.03
 
 
 def _record_det(path: str) -> float:
@@ -1705,6 +1719,27 @@ def phase_examples(dev, card: str, tmp: str, lap, which=EXAMPLE_STEPS) -> dict:
                 if not got["checksum_ok"] or not all(got[k] >= v for k, v in gates.items()):
                     fail(f"the {name} checkpoint's replay fails its gates")
                 _step_line(f"replay:{name}", t0, n, 0, card, lap)
+            # the masked-ant arms the port trained, on `ant` at action_repeat 1
+            with open(PORT_MASKED_ANT_RECORD) as f:
+                record = json.load(f)
+            t0 = start()
+            got = eval_checkpoint.main("masked_ant_port", device=dev)
+            n = whole_step.launches
+            count("replay:masked_ant_port", {(sub["ant"], ev): f"ant,B={ev}"})
+            rewards = {arm: got[arm]["episode_reward"] for arm in train_masked_ant.ARMS}
+            gates = {arm: (1 - PORT_MASKED_ANT_MARGIN)
+                     * record[train_masked_ant.RESULT_KEYS[arm]]["episode_reward"]
+                     for arm in rewards}
+            print("[examples:replay:masked_ant_port] " + "; ".join(
+                f"{arm}: checksum equal {got[arm]['checksum_ok']}, episode reward "
+                f"{rewards[arm]:.4f} (gate >= {gates[arm]:.4f}), x-displacement "
+                f"{got[arm]['x_displacement']:.4f}" for arm in rewards)
+                + f"; whole-step launches {n}", flush=True)
+            if (not all(got[arm]["checksum_ok"] and rewards[arm] >= gates[arm] for arm in rewards)
+                    or not rewards["ff_full"] > max(rewards["ff_masked"], rewards["gru_masked"])):
+                fail("the masked-ant arms' replay fails its gates, or FF full is not above both "
+                     "masked arms")
+            _step_line("replay:masked_ant_port", t0, n, 0, card, lap)
 
         if "c" in which:
             # (c) the gather curriculum at the bombmem02 recipe, one call a phase

@@ -1,5 +1,5 @@
-"""Replay a committed AntGather, AntMaze or AntHeavenHell GRU-PPO checkpoint
-with the port.
+"""Replay a committed AntGather, AntMaze or AntHeavenHell GRU-PPO checkpoint,
+or the masked-ant arms, with the port.
 
 Loads the numpy export (`tools/export_torch_checkpoint.py`) of
 checkpoints/ant_gather_rnn_800M (`--gather`), ant_gather_rnn_bombmem02_1B
@@ -23,9 +23,17 @@ of tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
 (300 frames); the JAX package has no HeavenHell renderer, so `--heavenhell`
 takes no `--html`.
 
+`--masked-ant-port` replays the three arms of examples/train_masked_ant.py
+that the port trained (MASKED_SEED 0, 100M env-steps each;
+masked_ant_{ff_full,ff_masked,gru_masked}_100M_torch, `MASKED_ANT_NPZ`),
+each checked against its checksum and run through the example's own
+`eval_policy` on its observation regime, deterministic, at reset seed 0 as
+the example evaluates it: each arm's mean episode reward and torso
+x-displacement (`--modes` does not apply; `--seeds` and `--html` raise).
+
 Usage: python -m pobrax_tpu_torch.eval_checkpoint
-       --gather|--gather-port|--gather-bombmem|--maze|--maze-port|--heavenhell [--device cpu]
-       [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
+       --gather|--gather-port|--gather-bombmem|--maze|--maze-port|--heavenhell|--masked-ant-port
+       [--device cpu] [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
 (the card unless a device is named)
 """
 
@@ -42,6 +50,7 @@ from pobrax_tpu_torch import interop
 from pobrax_tpu_torch import random as jr
 from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs, wrappers
+from pobrax_tpu_torch.examples import train_masked_ant
 from pobrax_tpu_torch.examples._common import make_parent, split2
 from pobrax_tpu_torch.examples.train_ant_gather_rnn import HIDDEN, gather_eval
 from pobrax_tpu_torch.examples.train_ant_maze_rnn import goal_rate_rnn
@@ -59,6 +68,10 @@ CHECKPOINTS = {"gather": ("ant_gather", "ant_gather_rnn_800M.npz", 500, (0, 0)),
                "maze": ("ant_maze", "ant_maze_rnn_400M.npz", 300, (0, 0)),
                "maze_port": ("ant_maze", "ant_maze_rnn_400M_torch.npz", 300, (0, 0)),
                "heavenhell": ("ant_heavenhell", "ant_heavenhell_rnn_400M.npz", None, (0, 1))}
+
+
+# the port-trained masked-ant arms' exports, by arm (`--masked-ant-port`)
+MASKED_ANT_NPZ = "masked_ant_{}_100M_torch.npz"
 
 
 def npz_path(name: str) -> str:
@@ -117,6 +130,38 @@ def evaluate(name: str, learner, ts, episodes: int = 256,
     return out
 
 
+def masked_ant_npz(arm: str) -> str:
+    return os.path.join(_DIR, MASKED_ANT_NPZ.format(arm))
+
+
+def load_masked_ant(arm: str, device=None, npz: Optional[str] = None):
+    """-> (learner, training state, checksum matches) of a masked-ant arm
+    (`train_masked_ant.learner_for(arm)` on `ant`), its state loaded from
+    `npz` (the committed export unless given)."""
+    learner = train_masked_ant.learner_for(arm, device, "ant")
+    tree = ckpt.load_npz(npz or masked_ant_npz(arm))
+    ts = interop.training_state_from_numpy(tree, learner)
+    same = interop.params_checksum(interop.params_to_numpy(ts.params)) == tree["params_sha256"]
+    return learner, ts, same
+
+
+def masked_ant_port(device=None, episodes: int = 256) -> dict:
+    """{arm: {"epochs", "checksum_ok", "episode_reward", "x_displacement"}}
+    of the three committed masked-ant arms: `train_masked_ant.evaluate` of
+    each deterministic policy at reset seed 0, as the example evaluates it.
+    Raises where a file's parameters do not match their checksum."""
+    out = {}
+    for arm in train_masked_ant.ARMS:
+        learner, ts, same = load_masked_ant(arm, device)
+        if not same:
+            raise RuntimeError(f"{masked_ant_npz(arm)}: the loaded parameters do not match "
+                               "their checksum")
+        out[arm] = {"epochs": ts.epochs, "checksum_ok": same, **train_masked_ant.evaluate(
+            arm, learner.make_inference_fn(), learner.inference_params(ts), learner.device,
+            "ant", episodes=episodes)}
+    return out
+
+
 @torch.no_grad()
 def render(name: str, learner, ts, out: str, frames: Optional[int] = None) -> dict:
     """The deterministic episode of tools/render_gather_policy.py /
@@ -152,6 +197,12 @@ def render(name: str, learner, ts, out: str, frames: Optional[int] = None) -> di
 
 def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[int]] = None,
          html_out: Optional[str] = None, modes: Sequence[str] = ("det", "stoch")) -> dict:
+    if name == "masked_ant_port":  # `modes` do not apply: the example evaluates det only
+        if html_out or seeds:
+            raise ValueError("masked_ant_port replays reset seed 0 only and renders nothing")
+        result = {"episodes": episodes, **masked_ant_port(device, episodes)}
+        print(json.dumps(result), flush=True)
+        return result
     if html_out and CHECKPOINTS[name][2] is None:
         raise ValueError(f"{name}: the JAX package has no renderer for {CHECKPOINTS[name][0]}")
     learner, ts, same = load(name, device)
@@ -170,7 +221,7 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = parser.add_mutually_exclusive_group(required=True)
     for flag in ("--gather", "--gather-port", "--gather-bombmem", "--maze", "--maze-port",
-                 "--heavenhell"):
+                 "--heavenhell", "--masked-ant-port"):
         which.add_argument(flag, dest="name", action="store_const",
                            const=flag[2:].replace("-", "_"))
     parser.add_argument("--device", default=None)

@@ -119,31 +119,28 @@ class ProgressLog:
     step dir: a cut call trains those epochs again. A curriculum adds one
     {"phase_end": the phase's knob (AntTag's visible radius, AntGather's
     sensor range), "steps", ...its replays' results} where a phase's last
-    step dir is replayed (`phase_end`, `phase_ends`)."""
+    step dir is replayed (`phase_end`, `phase_ends`); a run that evaluates its
+    final state once adds {"evaluation": ...its result, "steps"}
+    (`evaluated`, `evaluation`)."""
 
     def __init__(self, checkpoint_dir: str, card: Optional[str], seed: Optional[int] = None,
                  recipe: Optional[dict] = None):
         os.makedirs(checkpoint_dir, exist_ok=True)
         self.path = os.path.join(checkpoint_dir, "progress.jsonl")
-        latest = ckpt.latest_step_dir(checkpoint_dir)
-        resumed = int(os.path.basename(latest)[len("step_"):]) if latest else 0
-        lines = []
-        if os.path.exists(self.path):
-            with open(self.path) as f:
-                lines = [json.loads(line) for line in f if line.strip()]
+        resumed, lines = _load_log(checkpoint_dir)
         named = {e["seed"] for e in lines if "call" in e and "seed" in e}
-        if seed is not None and (named - {seed} or (latest and seed not in named)):
+        if seed is not None and (named - {seed} or (resumed and seed not in named)):
             raise ValueError(f"{checkpoint_dir} holds another run than seed {seed}'s (its log "
                              f"names seeds {sorted(named)}): give each seed its own checkpoint "
                              "dir")
         if recipe is not None:
             recipe = json.loads(json.dumps(recipe))  # as the log holds it: lists, not tuples
             named = [e["recipe"] for e in lines if "call" in e and "recipe" in e]
-            if any(r != recipe for r in named) or (latest and not named):
+            if any(r != recipe for r in named) or (resumed and not named):
                 raise ValueError(f"{checkpoint_dir} holds another run than recipe {recipe}'s "
                                  f"(its log names {named}): train it with the knobs it was "
                                  "started with, or give this recipe its own checkpoint dir")
-        lines = [e for e in lines if e.get("steps", 0) <= resumed]
+        lines = _kept(lines, resumed)
         lines.append({"call": resumed, "card": card,
                       **({} if seed is None else {"seed": seed}),
                       **({} if recipe is None else {"recipe": recipe})})
@@ -151,6 +148,17 @@ class ProgressLog:
         with open(self.path, "w") as f:
             f.writelines(json.dumps(e) + "\n" for e in lines)
         self.t0 = time.perf_counter()
+
+    @classmethod
+    def read(cls, checkpoint_dir: str) -> "ProgressLog":
+        """The log of `checkpoint_dir` as the next call would keep it, read
+        without writing: no call line is added, and another process may be
+        training there."""
+        log = cls.__new__(cls)
+        log.path = os.path.join(checkpoint_dir, "progress.jsonl")
+        resumed, lines = _load_log(checkpoint_dir)
+        log.lines, log.t0 = _kept(lines, resumed), None
+        return log
 
     def __call__(self, steps: int, metrics: dict) -> None:
         """A learner's `progress_fn`."""
@@ -177,8 +185,18 @@ class ProgressLog:
         return (ckpt.latest_step_dir(root) == os.path.join(root, f"step_{steps:012d}")
                 and all(e["steps"] != steps for e in self.phase_ends()))
 
+    def evaluated(self, steps: int, result: dict) -> None:
+        """Logs the evaluation of the state saved at `steps`."""
+        self._append({"evaluation": result, "steps": steps})
+
+    def evaluation(self, steps: int) -> Optional[dict]:
+        """The evaluation logged for the state at `steps`, or None."""
+        found = [e["evaluation"] for e in self.lines
+                 if "evaluation" in e and e["steps"] == steps]
+        return found[-1] if found else None
+
     def _reports(self) -> List[dict]:
-        return [e for e in self.lines if "phase_end" not in e]
+        return [e for e in self.lines if "phase_end" not in e and "evaluation" not in e]
 
     def curve(self) -> List[dict]:
         """[{"steps", "mean_reward"}] of every call."""
@@ -188,6 +206,26 @@ class ProgressLog:
     def calls(self) -> List[dict]:
         """`merged_calls` of this log."""
         return merged_calls(self._reports())
+
+
+def saved_steps(checkpoint_dir: str) -> int:
+    """The env-steps of the latest step dir under `checkpoint_dir`, or 0."""
+    latest = ckpt.latest_step_dir(checkpoint_dir)
+    return int(os.path.basename(latest)[len("step_"):]) if latest else 0
+
+
+def _load_log(checkpoint_dir: str):
+    """(`saved_steps`, the log's lines)."""
+    path, lines = os.path.join(checkpoint_dir, "progress.jsonl"), []
+    if os.path.exists(path):
+        with open(path) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+    return saved_steps(checkpoint_dir), lines
+
+
+def _kept(lines: List[dict], resumed: int) -> List[dict]:
+    """The lines a call resuming at `resumed` keeps: none past it."""
+    return [e for e in lines if e.get("steps", 0) <= resumed]
 
 
 def log_keys(log: ProgressLog, card: Optional[str]) -> dict:

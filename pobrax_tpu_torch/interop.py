@@ -436,7 +436,7 @@ def training_state_from_numpy(state: Any, learner, key: Optional[torch.Tensor] =
         pri = _maybe(state, "priorities")
         if pri is not None and np.size(pri):
             ts.priorities = torch.as_tensor(np.array(pri, np.float32), device=dev)
-    elif _find_adam(_get(state, "opt_state")) is not None:
+    elif _find_adam(_maybe(state, "opt_state")) is not None:
         ts.opt_state = _adam_from_numpy(ts.params, _get(state, "opt_state"),
                                         ts.opt_state.per_leaf)
     norm = _get(state, "normalizer")

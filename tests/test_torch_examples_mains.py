@@ -516,13 +516,12 @@ def test_rollout_demo_paths():
     assert out["env_steps_per_s"] > 0 and np.isfinite(out["mean_reward"])
 
 
-def _pendulum_learners(monkeypatch, seen):
+def _pendulum_learners(monkeypatch, seen, per_epoch=1024 * 32):
     """`ppo.train` and `ppo_rnn.train` replaced by recorders that keep their
     contract with a `checkpoint_dir`: resume from its latest step dir, report
     each epoch after it to `progress_fn`, and save the last epoch's step dir
     (holding only its epoch count); their policies are never called, as
-    `mean_length` is replaced too."""
-    per_epoch = 1024 * 32
+    the evaluator (`mean_length`, `eval_policy`) is replaced too."""
 
     def train(env, num_timesteps, checkpoint_dir, progress_fn, **kwargs):
         seen.append(dict(kwargs, checkpoint_dir=checkpoint_dir, progress_fn=progress_fn))
@@ -541,7 +540,19 @@ def _pendulum_learners(monkeypatch, seen):
     return per_epoch
 
 
-@pytest.mark.parametrize("example", ["heavenhell", "pendulum", "maze"])
+MASKED_ANT_RESULT = {"episode_reward": 1.0, "x_displacement": 0.5}
+
+
+def _masked_ant_stubbed(monkeypatch, seen, evaluations, num_envs=16):
+    """The masked ant's learners as `_pendulum_learners` and its evaluator
+    as a recorder; -> (per_epoch, its `main` at `num_envs` on the CPU)."""
+    monkeypatch.setattr(train_masked_ant, "eval_policy",
+                        lambda *a, **k: evaluations.append(a[0]) or dict(MASKED_ANT_RESULT))
+    return (_pendulum_learners(monkeypatch, seen, num_envs * 32),
+            functools.partial(train_masked_ant.main, num_envs=num_envs, device="cpu"))
+
+
+@pytest.mark.parametrize("example", ["heavenhell", "pendulum", "maze", "masked_ant"])
 def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
     """Each example run twice into one `checkpoint_dir`: the second call,
     with a larger budget, resumes from the first's step dir and trains only
@@ -550,9 +561,10 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
     evaluators at 4 episodes of 5 steps; the maze with its recipe's cached
     autoreset at an unroll of 8, at MAZE_SEED=1, and then refusing the dir
     to seed 0); the
-    pendulum's learners are `_pendulum_learners`, and each of its
-    three arms gets its own subdirectory, `CHECKPOINT_EVERY` and
-    `ProgressLog` there."""
+    pendulum's and the masked ant's learners are `_pendulum_learners`, and
+    each of their three arms gets its own subdirectory, `CHECKPOINT_EVERY`
+    and `ProgressLog` there; a masked-ant call at a budget its arms cover
+    trains and evaluates nothing, and `arm=` trains one arm."""
     root = str(tmp_path / "ckpt")
     if example in ("heavenhell", "maze"):
         dirs = {"": root}
@@ -575,6 +587,11 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
         per_epoch = 16 * 8 * 6
         run = functools.partial(train_ant_maze_rnn.main, num_envs=16, device="cpu",
                                 checkpoint_dir=root)
+    elif example == "masked_ant":
+        seen, evaluations = [], []
+        per_epoch, main = _masked_ant_stubbed(monkeypatch, seen, evaluations)
+        dirs = {arm: os.path.join(root, arm) for arm in train_masked_ant.ARMS}
+        run = functools.partial(main, checkpoint_dir=root)
     else:
         monkeypatch.setattr(train_masked_pendulum, "mean_length", lambda *a, **k: 3.0)
         seen = []
@@ -594,7 +611,7 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
     for arm, path in dirs.items():
         assert torch.load(os.path.join(path, f"step_{second:012d}", "state.pt"),
                           weights_only=True)["epochs"] == second // per_epoch
-    calls = two["calls"] if example == "pendulum" else {"": two["calls"]}
+    calls = two["calls"] if example in ("pendulum", "masked_ant") else {"": two["calls"]}
     assert set(calls) == set(dirs)
     for arm_calls in calls.values():
         assert [(c["from"], c["to"], c["card"]) for c in arm_calls] == [(0, first, None),
@@ -622,6 +639,31 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
             run(3 * per_epoch, out=str(tmp_path / "3.json"))
         assert step_dirs() == {"": [f"step_{first:012d}", f"step_{second:012d}"]}
         assert not os.path.exists(tmp_path / "3.json")
+    elif example == "masked_ant":
+        assert [(kw["checkpoint_dir"], kw["checkpoint_every"]) for kw in seen] == 2 * [
+            (dirs[arm], train_masked_ant.CHECKPOINT_EVERY) for arm in dirs]
+        assert len(evaluations) == 6
+        assert {k: two[k] for k in ("env", "hidden", "num_timesteps", "num_envs",
+                                    "episode_cap", "device")} == {
+            "env": "ant", "hidden": ["VELOCITY"], "num_timesteps": first + 1, "num_envs": 16,
+            "episode_cap": 1000, "device": "cpu"}
+        assert all(two[train_masked_ant.RESULT_KEYS[arm]] == MASKED_ANT_RESULT for arm in dirs)
+        for arm, path in dirs.items():  # each arm's log: its seed, recipe and evaluations
+            with open(os.path.join(path, "progress.jsonl")) as f:
+                log = [json.loads(line) for line in f]
+            assert [(e["seed"], e["recipe"]) for e in log if "call" in e] == 2 * [
+                (0, {"env": "ant", "num_envs": 16})]
+            assert [e["steps"] for e in log if "evaluation" in e] == [first, second]
+        # covered and evaluated: a third call trains and evaluates nothing
+        three = run(first + 1, out=str(tmp_path / "3.json"))
+        assert (len(seen), len(evaluations)) == (6, 6)
+        assert three == two
+        # one arm alone: a larger budget trains that arm only; no record yet
+        alone = run(3 * per_epoch, arm="ff_masked", out=str(tmp_path / "4.json"))
+        assert [kw["checkpoint_dir"] for kw in seen[6:]] == [dirs["ff_masked"]]
+        assert len(evaluations) == 7 and set(alone) == {"feedforward_masked"}
+        assert not os.path.exists(tmp_path / "4.json")
+        assert step_dirs()["ff_masked"][-1] == f"step_{3 * per_epoch:012d}"
     else:
         assert [(kw["checkpoint_dir"], kw["checkpoint_every"]) for kw in seen] == 2 * [
             (dirs[arm], train_masked_pendulum.CHECKPOINT_EVERY) for arm in dirs]
@@ -631,6 +673,71 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
         assert two["gru_masked"] == 3.0
     assert split_options(["7", "--checkpoint-dir", "d", "--device", "cpu"],
                          "--checkpoint-dir") == (["7"], "cpu", None, "d")
+
+
+def test_masked_ant_arm_alone_is_the_three_arm_calls_arm(monkeypatch, tmp_path):
+    """The arms that the three-arm call trains after another, each trained
+    alone (`arm=`), save the state, bit for bit, that the three-arm call
+    saves for them (its first arm, ff_full, runs after nothing there): the
+    real learners, 8 envs, one epoch of an unroll cut to 4 (the evaluator is
+    a recorder: it is the replay's concern)."""
+    monkeypatch.setitem(train_masked_ant.RECIPE, "unroll_length", 4)
+    monkeypatch.setattr(train_masked_ant, "eval_policy",
+                        lambda *a, **k: dict(MASKED_ANT_RESULT))
+    per_epoch = 8 * 4
+    run = functools.partial(train_masked_ant.main, per_epoch, 8, device="cpu")
+    three = run(checkpoint_dir=str(tmp_path / "three"), out=str(tmp_path / "three.json"))
+    assert three["calls"]["gru_masked"][0]["to"] == per_epoch
+    for arm in train_masked_ant.ARMS[1:]:
+        alone = run(checkpoint_dir=str(tmp_path / "alone"), arm=arm,
+                    out=str(tmp_path / "alone.json"))
+        assert set(alone) == {train_masked_ant.RESULT_KEYS[arm]}
+        states = [torch.load(os.path.join(tmp_path, d, arm, f"step_{per_epoch:012d}",
+                                          "state.pt"), weights_only=False)
+                  for d in ("three", "alone")]
+        want, got = (dict(export_leaves(s)) for s in states)
+        assert sorted(got) == sorted(want) and len(want) > 10, arm
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype and got[k].tobytes() == w.tobytes(), (arm, k)
+    assert not os.path.exists(tmp_path / "alone.json")  # ff_full's dir is empty there
+
+
+def export_leaves(tree, path=()):
+    """(path, numpy array) of every tensor or number in a saved state."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from export_leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from export_leaves(v, path + (str(i),))
+    elif hasattr(tree, "__dataclass_fields__"):
+        yield from export_leaves({f: getattr(tree, f) for f in tree.__dataclass_fields__}, path)
+    else:
+        value = tree.detach().cpu().numpy() if torch.is_tensor(tree) else np.asarray(tree)
+        yield "/".join(path), value
+
+
+@pytest.mark.parametrize("other", ["seed", "env", "num_envs"])
+def test_masked_ant_refuses_another_runs_dir(monkeypatch, tmp_path, other):
+    """A masked-ant checkpoint dir trained at MASKED_SEED 0 on `ant` at 16
+    envs is refused, before any arm trains and with its dirs left as they
+    were, by a call at another seed, env or envs."""
+    seen, evaluations = [], []
+    per_epoch, main = _masked_ant_stubbed(monkeypatch, seen, evaluations)
+    root = str(tmp_path / "ckpt")
+    main(per_epoch, checkpoint_dir=root, out=str(tmp_path / "1.json"))
+    before = {arm: sorted(os.listdir(os.path.join(root, arm))) for arm in train_masked_ant.ARMS}
+    kwargs = {"num_envs": 32} if other == "num_envs" else {}
+    if other == "seed":
+        monkeypatch.setenv("MASKED_SEED", "1")
+    if other == "env":
+        monkeypatch.setenv("MASKED_ENV", "humanoid")
+    with pytest.raises(ValueError, match="seed 1" if other == "seed" else "recipe"):
+        main(2 * per_epoch, checkpoint_dir=root, out=str(tmp_path / "2.json"), **kwargs)
+    assert len(seen) == 3 and len(evaluations) == 3
+    assert {arm: sorted(os.listdir(os.path.join(root, arm)))
+            for arm in train_masked_ant.ARMS} == before
+    assert not os.path.exists(tmp_path / "2.json")
 
 
 def test_progress_log_merges_calls(tmp_path):
