@@ -175,11 +175,11 @@ Each of phases 15-17 prints a `[mesh]` line with its backend and world size.
      losses, moved parameters), then its true-env tag rates on 256 episodes,
      det and stoch, reported; (b) `eval_checkpoint.main` of the gather (800M
      and bombmem02 1B) and maze checkpoints and the port-trained HeavenHell,
-     maze and gather ones: checksums, the maze's det goal rate gated at 0.95
-     (the port-trained maze's at its record's less PORT_TAG_MARGIN), gather's
-     apples and net (the port-trained gather's at its record's less
-     PORT_GATHER_MARGIN) and HeavenHell's completion and heaven rates (det
-     seed 0, stoch seed 1) gated at REPLAY_GATES; then
+     maze and gather (800M and bombmem02 1B) ones: checksums, the maze's det
+     goal rate gated at 0.95 (the port-trained maze's at its record's less
+     PORT_TAG_MARGIN), gather's apples and net (each port-trained gather's at
+     its record's less PORT_GATHER_MARGIN) and HeavenHell's completion and
+     heaven rates (det seed 0, stoch seed 1) gated at REPLAY_GATES; then
      `eval_checkpoint.main("masked_ant_port")`, the three masked-ant arms the
      port trained: checksums, each det episode reward gated at its record's
      less PORT_MASKED_ANT_MARGIN of it, FF full above both masked arms; (c)
@@ -460,6 +460,11 @@ PORT_MAZE_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs", "learning_ant_
 # tests/test_torch_gather_checkpoint.py), and the margin is two such moves
 PORT_GATHER_RECORD = os.path.join(ROOT, "pobrax_tpu_torch", "docs",
                                   "learning_gather_rnn_curriculum.json")
+# the same for the bomb-memory recipe's policy the port trained (seed 0;
+# its calls were resumed inside phase 2, which restarted the novelty
+# wrapper's bomb-cell grid, so the record is its own and not JAX's recipe's)
+PORT_GATHER_BOMBMEM_RECORD = os.path.join(
+    ROOT, "pobrax_tpu_torch", "docs", "learning_gather_rnn_bombmem02_cut_in_phase2.json")
 PORT_GATHER_MARGIN = 0.3
 # The masked-ant arms the port trained (`export_run_checkpoint --masked-ant`)
 # replay their run's own evaluations too (each arm's state, 256 episodes of
@@ -494,6 +499,7 @@ REPLAY_GATES = {
     "maze": {"det_goal_rate": 0.95},
     "maze_port": {"det_goal_rate": _record_det(PORT_MAZE_RECORD) - PORT_TAG_MARGIN},
     "gather_port": _gather_gates(PORT_GATHER_RECORD, PORT_GATHER_MARGIN),
+    "gather_bombmem_port": _gather_gates(PORT_GATHER_BOMBMEM_RECORD, PORT_GATHER_MARGIN),
     "heavenhell": {"det_completion": 0.95, "det_heaven": 0.95, "stoch_completion": 0.95,
                    "stoch_heaven": 0.95}}
 

@@ -9,9 +9,13 @@ at examples/train_heavenhell_rnn.py's recipe (ant_heavenhell_rnn_400M,
 `--heavenhell`), at examples/train_ant_maze_rnn.py's, seed 0
 (ant_maze_rnn_400M_torch, `--maze-port`), or at the sensor-range
 curriculum of examples/train_ant_gather_rnn.py, seed 0
-(ant_gather_rnn_800M_torch, `--gather-port`), checks the loaded
-parameters against the checksum stored beside them, and reports the
-example's own evaluator on 256 episodes under ActionRepeat(6) ->
+(ant_gather_rnn_800M_torch, `--gather-port`), or at its bomb-memory
+recipe (14 -> 6 -> 6 m, novelty 0.25 / 0.25 / 0, bomb memory 0.2, 1B),
+seed 0, a run whose calls were resumed inside phase 2 and so trained its
+last 163.6M env-steps of that phase without the bomb cells it had gathered
+(ant_gather_rnn_bombmem02_cut_in_phase2_1B_torch, `--gather-bombmem-port`),
+checks the loaded parameters against the checksum stored beside them, and
+reports the example's own evaluator on 256 episodes under ActionRepeat(6) ->
 Episode(1000) -> Vmap, deterministic and stochastic, as the examples
 evaluate them: `gather_eval` of examples/train_ant_gather_rnn.py (apples and
 bombs per episode) or `goal_rate_rnn` of examples/train_ant_maze_rnn.py, both
@@ -21,7 +25,8 @@ at reset seed 0, or `outcome_rates` of examples/train_heavenhell_rnn.py
 the JAX package's column). `--html OUT` also writes the deterministic episode
 of tools/render_gather_policy.py (500 frames) or tools/render_maze_policy.py
 (300 frames); the JAX package has no HeavenHell renderer, so `--heavenhell`
-takes no `--html`.
+takes no `--html`. `--spread` adds each AntGather mode's per-episode
+standard deviation of apples and bombs (`gather_counts`).
 
 `--masked-ant-port` replays the three arms of examples/train_masked_ant.py
 that the port trained (MASKED_SEED 0, 100M env-steps each;
@@ -32,8 +37,10 @@ the example evaluates it: each arm's mean episode reward and torso
 x-displacement (`--modes` does not apply; `--seeds` and `--html` raise).
 
 Usage: python -m pobrax_tpu_torch.eval_checkpoint
-       --gather|--gather-port|--gather-bombmem|--maze|--maze-port|--heavenhell|--masked-ant-port
+       --gather|--gather-port|--gather-bombmem|--gather-bombmem-port|--maze|--maze-port|
+       --heavenhell|--masked-ant-port
        [--device cpu] [--episodes N] [--seeds S ...] [--modes det stoch] [--html OUT]
+       [--spread]
 (the card unless a device is named)
 """
 
@@ -52,7 +59,7 @@ from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.envs import HAI_ACTION_REPEAT, _envs, wrappers
 from pobrax_tpu_torch.examples import train_masked_ant
 from pobrax_tpu_torch.examples._common import make_parent, split2
-from pobrax_tpu_torch.examples.train_ant_gather_rnn import HIDDEN, gather_eval
+from pobrax_tpu_torch.examples.train_ant_gather_rnn import HIDDEN, gather_counts, gather_eval
 from pobrax_tpu_torch.examples.train_ant_maze_rnn import goal_rate_rnn
 from pobrax_tpu_torch.examples.train_heavenhell_rnn import gru_policy, outcome_rates
 from pobrax_tpu_torch.io import html
@@ -65,6 +72,9 @@ _DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints")
 CHECKPOINTS = {"gather": ("ant_gather", "ant_gather_rnn_800M.npz", 500, (0, 0)),
                "gather_port": ("ant_gather", "ant_gather_rnn_800M_torch.npz", 500, (0, 0)),
                "gather_bombmem": ("ant_gather", "ant_gather_rnn_bombmem02_1B.npz", 500, (0, 0)),
+               "gather_bombmem_port": ("ant_gather",
+                                       "ant_gather_rnn_bombmem02_cut_in_phase2_1B_torch.npz", 500,
+                                       (0, 0)),
                "maze": ("ant_maze", "ant_maze_rnn_400M.npz", 300, (0, 0)),
                "maze_port": ("ant_maze", "ant_maze_rnn_400M_torch.npz", 300, (0, 0)),
                "heavenhell": ("ant_heavenhell", "ant_heavenhell_rnn_400M.npz", None, (0, 1))}
@@ -98,12 +108,16 @@ def load(name: str, device=None, npz: Optional[str] = None):
 
 def evaluate(name: str, learner, ts, episodes: int = 256,
              seeds: Optional[Sequence[int]] = None,
-             modes: Sequence[str] = ("det", "stoch")) -> dict:
+             modes: Sequence[str] = ("det", "stoch"), spread: bool = False) -> dict:
     """The example's evaluator, det and stoch (or the `modes` named), at
     the checkpoint's reset seeds (`CHECKPOINTS`) or at each of `seeds`:
     {"det_apples": .., "det_bombs": .., "det_net": .., ...},
     {"det_goal_rate": .., ...} or {"det_completion": .., "det_heaven": ..,
-    ...} (keys suffixed _s<seed> with `seeds`)."""
+    ...} (keys suffixed _s<seed> with `seeds`). With `spread` (AntGather
+    only) the same episodes' means come with their per-episode standard
+    deviations, "det_apples_sd" and "det_bombs_sd" (ddof 1)."""
+    if spread and CHECKPOINTS[name][0] != "ant_gather":
+        raise ValueError(f"{name}: --spread reads AntGather's apples and bombs only")
     inference_fn, params = learner.make_inference_fn(), learner.inference_params(ts)
     env_name, _, _, (det_seed, stoch_seed) = CHECKPOINTS[name]
     out = {}
@@ -122,6 +136,15 @@ def evaluate(name: str, learner, ts, episodes: int = 256,
                 out[f"{mode}_goal_rate{suffix}"] = goal_rate_rnn(
                     core, inference_fn, params, HIDDEN, episodes, seed=at,
                     action_repeat=HAI_ACTION_REPEAT, deterministic=det)
+            elif spread:
+                apples, bombs = gather_counts(core, (params, inference_fn, det), episodes,
+                                              seed=at, action_repeat=HAI_ACTION_REPEAT,
+                                              hidden_size=HIDDEN)
+                a, b = float(apples.mean()), float(bombs.mean())
+                out.update({f"{mode}_apples{suffix}": a, f"{mode}_bombs{suffix}": b,
+                            f"{mode}_net{suffix}": a - b,
+                            f"{mode}_apples_sd{suffix}": float(apples.std()),
+                            f"{mode}_bombs_sd{suffix}": float(bombs.std())})
             else:
                 a, b = gather_eval(core, (params, inference_fn, det), episodes, seed=at,
                                    action_repeat=HAI_ACTION_REPEAT, hidden_size=HIDDEN)
@@ -196,10 +219,12 @@ def render(name: str, learner, ts, out: str, frames: Optional[int] = None) -> di
 
 
 def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[int]] = None,
-         html_out: Optional[str] = None, modes: Sequence[str] = ("det", "stoch")) -> dict:
+         html_out: Optional[str] = None, modes: Sequence[str] = ("det", "stoch"),
+         spread: bool = False) -> dict:
     if name == "masked_ant_port":  # `modes` do not apply: the example evaluates det only
-        if html_out or seeds:
-            raise ValueError("masked_ant_port replays reset seed 0 only and renders nothing")
+        if html_out or seeds or spread:
+            raise ValueError("masked_ant_port replays reset seed 0 only, renders nothing and "
+                             "gives no spread")
         result = {"episodes": episodes, **masked_ant_port(device, episodes)}
         print(json.dumps(result), flush=True)
         return result
@@ -210,7 +235,7 @@ def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[i
         raise RuntimeError(f"{npz_path(name)}: the loaded parameters do not match their "
                            "checksum")
     result = {"npz": os.path.basename(npz_path(name)), "epochs": ts.epochs, "checksum_ok": same,
-              "episodes": episodes, **evaluate(name, learner, ts, episodes, seeds, modes)}
+              "episodes": episodes, **evaluate(name, learner, ts, episodes, seeds, modes, spread)}
     if html_out:
         result["html"] = render(name, learner, ts, html_out)
     print(json.dumps(result), flush=True)
@@ -220,8 +245,8 @@ def main(name: str, device=None, episodes: int = 256, seeds: Optional[Sequence[i
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     which = parser.add_mutually_exclusive_group(required=True)
-    for flag in ("--gather", "--gather-port", "--gather-bombmem", "--maze", "--maze-port",
-                 "--heavenhell", "--masked-ant-port"):
+    for flag in ("--gather", "--gather-port", "--gather-bombmem", "--gather-bombmem-port",
+                 "--maze", "--maze-port", "--heavenhell", "--masked-ant-port"):
         which.add_argument(flag, dest="name", action="store_const",
                            const=flag[2:].replace("-", "_"))
     parser.add_argument("--device", default=None)
@@ -229,5 +254,7 @@ if __name__ == "__main__":
     parser.add_argument("--seeds", type=int, nargs="+", default=None)
     parser.add_argument("--html", default=None, help="write the rendered episode here")
     parser.add_argument("--modes", nargs="+", choices=("det", "stoch"), default=["det", "stoch"])
+    parser.add_argument("--spread", action="store_true",
+                        help="AntGather: also each mode's per-episode standard deviations")
     args = parser.parse_args()
-    main(args.name, args.device, args.episodes, args.seeds, args.html, args.modes)
+    main(args.name, args.device, args.episodes, args.seeds, args.html, args.modes, args.spread)

@@ -23,7 +23,13 @@ call (`gather_knobs`), not at import.
 command repeated trains the curriculum across calls and writes the record
 once the last phase ends. Each GATHER_SEED, and each setting of the knobs
 that shape training, needs its own PATH (a dir whose log names another seed
-or other knobs raises before anything trains).
+or other knobs raises before anything trains). A call resumes with fresh
+envs. The novelty wrapper's visit and bomb-cell grids live in the envs'
+`state.info`, and the autoresets keep them across a phase's episodes, so a
+phase that the wrapper trains is resumed only from its start: its step dir
+is saved at its end alone (a cut call trains the phase again), and a dir
+whose latest step lies inside such a phase raises. Other phases save after
+every call of `epochs_per_call` epochs. The dir keeps the last two saves.
 
 Usage: python -m pobrax_tpu_torch.examples.train_ant_gather_rnn [variant] [num_timesteps]
        [num_envs] [--device cpu] [--out PATH]
@@ -46,8 +52,8 @@ from pobrax_tpu_torch.envs.base import Env, State, Wrapper
 from pobrax_tpu_torch.envs.exploration import GridNoveltyBonusWrapper
 from pobrax_tpu_torch.device import resolve
 from pobrax_tpu_torch.examples._common import (ProgressLog, log_keys, phase_end, run_episodes,
-                                               run_path, split_options, uniform_actions,
-                                               write_json)
+                                               run_path, saved_steps, split_options,
+                                               uniform_actions, write_json)
 from pobrax_tpu_torch.training import ppo_rnn
 from pobrax_tpu_torch.utils.profiling import record_device
 
@@ -60,10 +66,6 @@ RECIPE = dict(episode_length=1000, action_repeat=HAI_ACTION_REPEAT, unroll_lengt
               discounting=0.97, reward_scaling=1.0, hidden_size=HIDDEN, encoder_sizes=(256,),
               epochs_per_call=8, autoreset_mode="cached")
 CHECKPOINT_EVERY = 100_000_000  # the JAX example's
-# with `resume`: 24 calls of 8 epochs at 2048 envs (3,145,728 env-steps a
-# call), ~4-7 min of training on the H100, the most a cut call loses; a
-# whole number of calls, so a resumed phase ends where an uncut one does
-RESUME_CHECKPOINT_EVERY = 24 * 3_145_728
 
 
 class ShapedAntGather(Wrapper):
@@ -101,11 +103,11 @@ class ShapedAntGather(Wrapper):
         return nstate.replace(reward=nstate.reward + self.coef * delta)
 
 
-def gather_eval(env_core: Env, act_fn, episodes: int = 256, episode_length: int = 1000,
-                seed: int = 0, action_repeat: int = 1, hidden_size: int = 0) -> Tuple[float, float]:
-    """Mean apples and bombs caught per episode on the TRUE env. `act_fn` is
-    None (uniform random actions) or (params, inference_fn, deterministic)
-    of a GRU-PPO policy with `hidden_size` units."""
+def gather_counts(env_core: Env, act_fn, episodes: int = 256, episode_length: int = 1000,
+                  seed: int = 0, action_repeat: int = 1,
+                  hidden_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apples and bombs caught in each of `episodes` episodes on the TRUE
+    env, as `gather_eval` runs them."""
     dev = env_core.device
     asz = env_core.action_size
     apples = torch.zeros(episodes, device=dev)
@@ -126,6 +128,16 @@ def gather_eval(env_core: Env, act_fn, episodes: int = 256, episode_length: int 
 
     run_episodes(env_core, act, torch.zeros(episodes, hidden_size, device=dev), observe,
                  episodes, episode_length, seed, action_repeat)
+    return apples, bombs
+
+
+def gather_eval(env_core: Env, act_fn, episodes: int = 256, episode_length: int = 1000,
+                seed: int = 0, action_repeat: int = 1, hidden_size: int = 0) -> Tuple[float, float]:
+    """Mean apples and bombs caught per episode on the TRUE env. `act_fn` is
+    None (uniform random actions) or (params, inference_fn, deterministic)
+    of a GRU-PPO policy with `hidden_size` units."""
+    apples, bombs = gather_counts(env_core, act_fn, episodes, episode_length, seed,
+                                  action_repeat, hidden_size)
     return float(apples.mean()), float(bombs.mean())
 
 
@@ -149,6 +161,12 @@ class GatherKnobs:
 
     def novelty_beta(self, phase_idx: int) -> float:
         return self.novelty[min(phase_idx, len(self.novelty) - 1)]
+
+    def wrapped(self, phase_idx: int) -> bool:
+        """Whether the phase trains inside `GridNoveltyBonusWrapper`, whose
+        grids carry across its episodes: its beta or the bomb memory is
+        positive."""
+        return self.novelty_beta(phase_idx) > 0.0 or self.bomb_memory > 0.0
 
     def recipe(self, num_envs: int) -> dict:
         """What shapes `main_curriculum`'s training beside the seed (GATHER_GAMMA
@@ -185,9 +203,9 @@ def _training_env(core_env: Env, bomb_coef: float, phase_idx: int = 0,
     steps: the wrapper sits below ActionRepeat, so about half an episode)."""
     knobs = knobs or gather_knobs()
     env = ShapedAntGather(core_env, coef=5.0, bomb_coef=bomb_coef)
-    beta = knobs.novelty_beta(phase_idx)
-    if beta > 0.0 or knobs.bomb_memory > 0.0:
-        env = GridNoveltyBonusWrapper(env, beta=beta, half_extent=10.0, grid=16,
+    if knobs.wrapped(phase_idx):
+        env = GridNoveltyBonusWrapper(env, beta=knobs.novelty_beta(phase_idx),
+                                      half_extent=10.0, grid=16,
                                       halflife_steps=500.0, bomb_memory=knobs.bomb_memory)
     return env
 
@@ -226,6 +244,30 @@ def curriculum_out(knobs: GatherKnobs) -> str:
         + (f"_seed{knobs.seed}" if knobs.seed != 0 else "") + ".json")
 
 
+def _check_resume_point(checkpoint_dir: str, knobs: GatherKnobs, per_call: int) -> None:
+    """Raises if the latest step dir in `checkpoint_dir` lies inside a phase
+    that `GatherKnobs.wrapped`: a resumed call restarts the envs, and with
+    them the wrapper's grids that an uncut phase keeps across episodes."""
+    saved, start = saved_steps(checkpoint_dir), 0
+    for phase_idx, (srange, total) in enumerate(knobs.curriculum):
+        end = phase_end(total, per_call)
+        if knobs.wrapped(phase_idx) and start < saved < end:
+            raise ValueError(
+                f"{checkpoint_dir}: its latest step dir, at {saved:,} env-steps, lies inside "
+                f"phase {phase_idx} ({start:,} to {end:,}, sensor_range={srange}), whose "
+                "novelty wrapper keeps its grids across episodes; a resumed call would "
+                f"restart them. Remove the step dirs past {start:,} to train the phase again "
+                "from its start")
+        start = end
+
+
+def _prune(checkpoint_dir: str) -> None:
+    """Removes all but the latest step dir under `checkpoint_dir`."""
+    steps = sorted(d for d in os.listdir(checkpoint_dir) if d.startswith("step_"))
+    for d in steps[:-1]:
+        shutil.rmtree(os.path.join(checkpoint_dir, d))
+
+
 def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
                     knobs: Optional[GatherKnobs] = None, device=None,
                     out: Optional[str] = None, resume: bool = False) -> dict:
@@ -238,17 +280,24 @@ def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
     With `resume` (the command line's `--checkpoint-dir`) the directory is
     kept and the run goes on from its latest step dir, so the same call
     repeated trains the curriculum across calls: a phase whose budget the
-    dir already covers trains nothing. It saves every
-    `RESUME_CHECKPOINT_EVERY` env-steps (save points change nothing in
-    training), logs each call in `ProgressLog` (which refuses a dir of
-    another GATHER_SEED or other knobs, `GatherKnobs.recipe`), replays the last step dir of every phase but the
-    last on the true env (`_evaluate`) into that log, and the record gains
-    `epochs`, `steps`, `calls`, `wall_s`, `device` and `phase_ends`; its
-    `curve` is every tenth report of every call."""
+    dir already covers trains nothing. A phase saves after every call of
+    `epochs_per_call` epochs, or at its end alone where `GatherKnobs.wrapped`
+    (save points change nothing in training); before each call's save the
+    dir keeps only its latest step dir, so it holds the last two saves. A
+    dir whose latest step lies inside a wrapped phase raises before anything
+    is written (`_check_resume_point`). The call is logged in `ProgressLog`
+    (which refuses a dir of another GATHER_SEED or other knobs,
+    `GatherKnobs.recipe`), the last step dir of every phase but the last is
+    replayed on the true env (`_evaluate`) into that log, and the record
+    gains `epochs`, `steps`, `calls`, `wall_s`, `device` and `phase_ends`;
+    its `curve` is every tenth report of every call."""
     knobs = knobs or gather_knobs()
     checkpoint_dir = checkpoint_dir or run_path("ant_gather_rnn_ckpt")
+    per_call = num_envs * RECIPE["unroll_length"] * RECIPE["action_repeat"] * RECIPE[
+        "epochs_per_call"]
     log = card = None
     if resume:
+        _check_resume_point(checkpoint_dir, knobs, per_call)
         card = record_device(resolve(device))["card"]
         log = ProgressLog(checkpoint_dir, card, seed=knobs.seed, recipe=knobs.recipe(num_envs))
     else:
@@ -259,20 +308,19 @@ def main_curriculum(num_envs: int = 2048, checkpoint_dir: Optional[str] = None,
     def progress(steps, metrics):
         if log is not None:
             log(steps, metrics)
+            _prune(checkpoint_dir)  # the learner saves after its report
         report(steps, metrics)
 
     common = dict(num_envs=num_envs, seed=knobs.seed, checkpoint_dir=checkpoint_dir,
-                  checkpoint_every=RESUME_CHECKPOINT_EVERY if resume else CHECKPOINT_EVERY,
                   progress_fn=progress, **RECIPE)
-    per_call = num_envs * RECIPE["unroll_length"] * RECIPE["action_repeat"] * RECIPE[
-        "epochs_per_call"]
     inference_fn = params = None
     for phase_idx, (srange, total) in enumerate(knobs.curriculum):
+        every = (total if knobs.wrapped(phase_idx) else per_call) if resume else CHECKPOINT_EVERY
         inference_fn, params, _ = ppo_rnn.train(
             _training_env(_envs["ant_gather"](sensor_range=srange, device=device,
                                               **knobs.env_kw),
                           knobs.bomb_coef, phase_idx, knobs),
-            num_timesteps=total, **common)
+            num_timesteps=total, checkpoint_every=every, **common)
         print(f"curriculum phase done: sensor_range={srange}", flush=True)
         end = phase_end(total, per_call)
         if log is not None and phase_idx < len(knobs.curriculum) - 1 and log.phase_end_due(end):

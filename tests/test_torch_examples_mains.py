@@ -557,10 +557,10 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
     """Each example run twice into one `checkpoint_dir`: the second call,
     with a larger budget, resumes from the first's step dir and trains only
     the rest; the record's `calls` say which call trained which env-steps.
-    HeavenHell and the maze train for real at 16 envs, one epoch a call (their
-    evaluators at 4 episodes of 5 steps; the maze with its recipe's cached
-    autoreset at an unroll of 8, at MAZE_SEED=1, and then refusing the dir
-    to seed 0); the
+    HeavenHell and the maze train for real at 16 envs, one epoch a call at an
+    unroll of 8 (their evaluators at 4 episodes of 5 steps; the maze with its
+    recipe's cached autoreset, at MAZE_SEED=1, and then refusing the dir to
+    seed 0); the
     pendulum's and the masked ant's learners are `_pendulum_learners`, and
     each of their three arms gets its own subdirectory, `CHECKPOINT_EVERY`
     and `ProgressLog` there; a masked-ant call at a budget its arms cover
@@ -569,7 +569,8 @@ def test_mains_resume_from_checkpoint_dir(monkeypatch, tmp_path, example):
     if example in ("heavenhell", "maze"):
         dirs = {"": root}
     if example == "heavenhell":
-        per_epoch = 16 * 32 * 6
+        monkeypatch.setitem(train_heavenhell_rnn.RECIPE, "unroll_length", 8)
+        per_epoch = 16 * 8 * 6
         monkeypatch.setattr(train_heavenhell_rnn, "outcome_rates",
                             functools.partial(train_heavenhell_rnn.outcome_rates, episodes=4,
                                               episode_length=5))
